@@ -20,7 +20,16 @@ exits non-zero:
    counts are reset just before and read just after; every draft must
    equal the CPU plain engine's compose of its layout JSON and PIL's own
    LANCZOS resize + alpha_composite;
-5. one JSON line of kernel results, the nvidia-smi line, and last
+5. batched path (squarespace objects shared, 1080x1920): K2
+   (ops/compose_kernels.fused_v3) against fused_v3_reference at B=64 with
+   boxes from seed 0 and per-object static windows, and K3
+   (restore_windows) against restore_windows_reference, both bit-exact
+   (tolerance 0), with median CUDA-event times of both; a 3-step reuse
+   chain (K3 + K2 in place) equal to fresh renders; then the main path of
+   the slice, throughput_sweep(kernel="pallas") at 1080p B=256 with
+   warmup 1 and 5 reps, with the K2/K3 launch counts reset just before and
+   read just after (both must be > 0), printing canvases/s;
+6. one JSON line of kernel results, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -38,6 +47,11 @@ ROOT = Path(__file__).resolve().parent
 PACKAGE = ROOT / "image_transformation_tpu_torch"
 KERNEL_SOURCE = "image_transformation_tpu_torch/csrc/fused_compose.cu"
 KERNEL_REPLACES = "image_transformation_tpu/ops/compose_pallas.py:2456"
+V3_SOURCE = "image_transformation_tpu_torch/csrc/fused_v3.cu"
+V3_REPLACES = "image_transformation_tpu/ops/compose_pallas.py:3081"
+RESTORE_SOURCE = "image_transformation_tpu_torch/csrc/restore_windows.cu"
+RESTORE_REPLACES = "image_transformation_tpu/ops/compose_pallas.py:3826"
+BATCH_HW = (1080, 1920)
 
 
 def smi_line() -> str:
@@ -254,6 +268,136 @@ def phase_main_path():
     return launches
 
 
+def _max_abs_err(a, b) -> int:
+    """Largest per-byte difference of two packed int32 planes."""
+    import torch
+
+    from image_transformation_tpu_torch.ops.compose_kernels import packed_to_u8
+
+    return int((packed_to_u8(a).to(torch.int32) - packed_to_u8(b).to(torch.int32))
+               .abs().max())
+
+
+def _in_turns(kernel, plain, k_reps, p_reps):
+    """Median CUDA-event times, in turns plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, p_reps)
+    k1 = cuda_ms(kernel, k_reps)
+    k2 = cuda_ms(kernel, k_reps)
+    p2 = cuda_ms(plain, p_reps)
+    return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
+
+
+def phase_batched(smi: str):
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.parallel import throughput_sweep
+    from image_transformation_tpu_torch.parallel.sweep import random_downscale_boxes
+
+    device = torch.device("cuda", 0)
+    bundle = load_bundle(ROOT / "data" / "squarespace")
+    arrays = bundle.to_arrays()
+    H, W = BATCH_HW
+    B = 64
+    N = arrays.obj_hw.shape[0]
+    static = tuple(tuple(int(v) for v in row) for row in arrays.obj_hw)
+    objs_p = ck.planarize_objects(torch.from_numpy(arrays.objects).to(device)[None])
+    hw = torch.from_numpy(np.broadcast_to(arrays.obj_hw, (B, N, 2)).copy()).to(device)
+
+    def boxes(seed):
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(np.stack(
+            [random_downscale_boxes(rng, arrays.obj_hw, (H, W)) for _ in range(B)]
+        )).to(device)
+
+    bg = ck.pack_rgba_scalar((128, 128, 128, 255))
+    results = {}
+
+    # K2 vs its plain version, on the inputs render_solid_fused_v3_program gives it
+    meta, env, (hp, wp) = ck._render_meta(objs_p, hw, boxes(0), (H, W), None, True, static)
+    base = torch.full((B, hp, wp), bg, dtype=torch.int32, device=device)
+    out_k = ck.fused_v3(base.clone(), objs_p, meta, env)
+    out_p = ck.fused_v3_reference(base.clone(), objs_p, meta, env)
+    torch.cuda.synchronize()
+    err = _max_abs_err(out_k, out_p)
+    changed = int((out_k != base).sum())
+    if not torch.equal(out_k, out_p):
+        raise AssertionError(f"[batched] K2 != plain version, max abs err {err}")
+    if changed == 0:
+        raise AssertionError("[batched] K2 changed no pixel")
+    work_k, work_p = base.clone(), base.clone()
+    ms, plain_ms, raw = _in_turns(
+        lambda: ck.fused_v3(work_k, objs_p, meta, env),
+        lambda: ck.fused_v3_reference(work_p, objs_p, meta, env), 5, 2)
+    results["fused_v3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    print(f"[batched] K2 canvas {H}x{W} (plane {hp}x{wp}) B={B} N={N} shared objects, "
+          f"static windows: K2 == plain (max abs err {err}, {changed} pixels changed); "
+          f"K2 {ms:.3f} ms ({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms "
+          f"({raw[2]:.3f}, {raw[3]:.3f}) on {smi}")
+    del work_k, work_p
+
+    # K3 vs its plain version: restore the windows of that render
+    static_win = ck._static_window_extents(static, env)
+    origins = ck._restore_meta_static(boxes(0), (H, W), (hp, wp), static_win)
+    extents = static_win
+    got = ck.restore_windows(out_k.clone(), origins, extents, bg)
+    want = ck.restore_windows_reference(out_k.clone(), origins, extents, bg)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"[batched] K3 != plain version, max abs err {err}")
+    if not torch.equal(got, base):
+        raise AssertionError("[batched] restoring the windows left pixels of the render")
+    work_k, work_p = out_k.clone(), out_k.clone()
+    ms, plain_ms, raw = _in_turns(
+        lambda: ck.restore_windows(work_k, origins, extents, bg),
+        lambda: ck.restore_windows_reference(work_p, origins, extents, bg), 10, 3)
+    results["restore_windows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    print(f"[batched] K3 B={B} N={N} per-object windows {list(static_win)}: K3 == plain "
+          f"(max abs err {err}) and leaves the solid plane; K3 {ms:.3f} ms "
+          f"({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms "
+          f"({raw[2]:.3f}, {raw[3]:.3f}) on {smi}")
+    del out_k, out_p, got, want, work_k, work_p, base
+
+    # a 3-step reuse chain equals fresh renders
+    sets = [boxes(seed) for seed in range(4)]
+    plane = ck.render_solid_fused_v3_program(
+        objs_p, hw, sets[0], (H, W), bg, pipelined=True, static_obj_hw=static)
+    for step_i, (prev, cur) in enumerate(zip(sets, sets[1:]), start=1):
+        plane = ck.render_solid_fused_v3_reuse_program(
+            plane, prev, objs_p, hw, cur, (H, W), bg, static_obj_hw=static,
+            pipelined=True)
+        fresh = ck.render_solid_fused_v3_program(
+            objs_p, hw, cur, (H, W), bg, pipelined=True, static_obj_hw=static)
+        if not torch.equal(plane, fresh):
+            raise AssertionError(f"[batched] reuse step {step_i} != a fresh render")
+    print("[batched] reuse chain: 3 reuse steps (K3 + K2 in place) == fresh renders")
+    del plane, fresh
+    torch.cuda.empty_cache()
+
+    # the slice's main path: the throughput sweep on the solid render step
+    ck.reset_launch_counts()
+    sweep = throughput_sweep(
+        [bundle], ["16:9"], batch_per_ratio=256, pixel_budget_size=(W, H),
+        kernel="pallas", warmup=1, reps=5, device="cuda",
+    )
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    for name in ("fused_v3", "restore_windows"):
+        if launches[name] <= 0:
+            raise AssertionError(f"[batched] the sweep launched {name} {launches[name]} times")
+    r = sweep["ratios"]["16:9"]
+    if tuple(r["canvas"]) != (W, H) or not r["canvases_per_sec"] > 0:
+        raise AssertionError(f"[batched] unexpected sweep result {sweep}")
+    print(f"[batched] throughput_sweep squarespace 16:9 {r['canvas'][0]}x{r['canvas'][1]} "
+          f"B={r['batch']} pallas warmup 1 reps 5: {r['canvases_per_sec']:.1f} canvases/s "
+          f"({r['seconds_per_batch'] * 1e3:.3f} ms per batch); launches K2 "
+          f"{launches['fused_v3']}, K3 {launches['restore_windows']} on {smi}")
+    return results, launches, sweep
+
+
 def main_smoke() -> int:
     smi = phase_device()
     import torch
@@ -261,6 +405,7 @@ def main_smoke() -> int:
     phase_build()
     kernel = phase_kernel(smi)
     launches = phase_main_path()
+    batched, batched_launches, _ = phase_batched(smi)
     cli, serve = kernel["cli_9x16_b1"], kernel["serve_1080p_b64"]
     print(json.dumps({"kernels": [{
         "name": "fused_compose",
@@ -273,7 +418,17 @@ def main_smoke() -> int:
         "plain_ms": cli["plain_ms"],
         "ms_1080p_b64": serve["ms"],
         "plain_ms_1080p_b64": serve["plain_ms"],
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": batched_launches[name],
+        **batched[name],
+    } for name, source, replaces in (
+        ("fused_v3", V3_SOURCE, V3_REPLACES),
+        ("restore_windows", RESTORE_SOURCE, RESTORE_REPLACES),
+    )]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

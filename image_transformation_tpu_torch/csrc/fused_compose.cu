@@ -41,50 +41,23 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "pillow.cuh"
+
 namespace {
+
+using pillow::alpha_over;
+using pillow::clip8;
+using pillow::muldiv255;
 
 constexpr int TILE_X = 32;   // output columns per block (one warp)
 constexpr int TILE_Y = 8;    // output rows per block
 constexpr int TILE_K = 32;   // contraction step staged in shared memory
 constexpr int THREADS = TILE_X * TILE_Y;
-constexpr int PRECISION_BITS = 22;
-constexpr int HALF = 1 << (PRECISION_BITS - 1);
 constexpr uint8_t FLAG_LIVE = 1;
 constexpr uint8_t FLAG_IDENTITY = 2;
 constexpr int BLEND_THREADS = 256;
 
 static_assert(TILE_Y * TILE_K == THREADS, "one staged source pixel per thread");
-
-__device__ __forceinline__ int clip8(int ss) {
-  const int v = (ss + HALF) >> PRECISION_BITS;  // arithmetic shift, as Pillow
-  return v < 0 ? 0 : (v > 255 ? 255 : v);
-}
-
-__device__ __forceinline__ int muldiv255(int c, int a) {
-  const int t = c * a + 128;
-  return ((t >> 8) + t) >> 8;
-}
-
-__device__ __forceinline__ unsigned shift_div255(unsigned v) {
-  return ((v >> 8) + v) >> 8;
-}
-
-// Pillow ImagingAlphaComposite for one pixel.
-__device__ __forceinline__ uchar4 alpha_over(uchar4 d, uchar4 s) {
-  const unsigned sa = s.w;
-  if (sa == 0) return d;
-  const unsigned blend = d.w * (255u - sa);
-  const unsigned outa255 = sa * 255u + blend;
-  const unsigned coef1 = (sa * 255u * 255u * 128u) / outa255;
-  const unsigned coef2 = 255u * 128u - coef1;
-  const unsigned bias = 0x80u << 7;
-  uchar4 o;
-  o.x = (unsigned char)(shift_div255(s.x * coef1 + d.x * coef2 + bias) >> 7);
-  o.y = (unsigned char)(shift_div255(s.y * coef1 + d.y * coef2 + bias) >> 7);
-  o.z = (unsigned char)(shift_div255(s.z * coef1 + d.z * coef2 + bias) >> 7);
-  o.w = (unsigned char)shift_div255(outa255 + 0x80u);
-  return o;
-}
 
 // (a) tmp[b,k,c,y,ox] = clip8(sum_j kh[b,k,ox,j] * premul(obj[y,j])[c]).
 // Block: 32 output columns x 8 source rows of one (b, k); grid.z = B*N.
@@ -206,14 +179,8 @@ vpass_kernel(const uchar4* __restrict__ objects, const int* __restrict__ kv,
     __syncthreads();
   }
   if (ox < mw && oy < mh) {
-    int r = clip8(a0), g = clip8(a1), bl = clip8(a2);
-    const int a = clip8(a3);
-    if (a != 0) {
-      r = min(255, (255 * r) / a);
-      g = min(255, (255 * g) / a);
-      bl = min(255, (255 * bl) / a);
-    }
-    out[(size_t)oy * mw + ox] = make_uchar4(r, g, bl, a);
+    out[(size_t)oy * mw + ox] =
+        pillow::unpremultiply(clip8(a0), clip8(a1), clip8(a2), clip8(a3));
   }
 }
 

@@ -1,12 +1,15 @@
 """Build and load the port's hand-written CUDA kernels.
 
 On first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package into one
-shared library with a plain C interface:
+shared library with a plain C interface: one ``nvcc -c`` per source, all
+started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <tmp>/<name>.o csrc/<name>.cu    (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/kernels/kernels_<hash>.so <tmp>/*.o
 
-The file is named by a hash of the sources and flags, under ``build/kernels/``
+The file is named by a hash of the sources, headers and flags, under ``build/kernels/``
 at the root of the checkout, so an unchanged tree builds once and an edited
 source builds anew. The library is loaded with ``ctypes``; each wrapper sets
 its entry's argument types (pointers and the stream as ``c_void_p``).
@@ -29,10 +32,8 @@ from typing import List, Optional
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _LIB: Optional[ctypes.CDLL] = None
 #: seconds the last build took in this process (0.0 when the .so existed)
@@ -61,7 +62,7 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
@@ -80,22 +81,38 @@ def build(verbose: bool = False) -> Path:
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *map(str, srcs)]
+    nvcc = nvcc_path()
+    verbose_flags = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [Path(objdir) / f"{src.stem}.o" for src in srcs]
+        procs = [
+            (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *verbose_flags, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ), src)
+            for src, obj in zip(srcs, objs)
+        ]
+        failed, reports = [], []
+        for proc, src in procs:
+            _, err = proc.communicate()
+            reports.append(err)
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}"
+            )
     last_build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
     if verbose:
-        print(proc.stderr, end="")
+        print("".join(reports), end="")
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
 

@@ -8,7 +8,9 @@ PRECISION_BITS=7) in int32, so compositing is bit-exact vs PIL.
 
 These are the plain PyTorch versions: the engine's compose on a CUDA
 device goes through the hand-written kernel in ops/compose_kernels.py,
-whose CPU path is built from the functions here.
+whose CPU path is built from the functions here. :func:`composite_canvas`
+/ :func:`composite_batch` are the JAX package's XLA-path composite, with
+tables from the traced f32 table code.
 
 Unlike the JAX package, :func:`_blend_window` writes into the canvas it is
 given (saving a full-canvas copy per placement); the public ``composite_*``
@@ -22,6 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .resize import build_coeffs_traced, resize_with_tables
 
 _PRECISION_BITS = 7
 
@@ -122,6 +125,65 @@ def composite_canvas_tables_indexed(
         torch.tensor([flags], dtype=torch.uint8, device=dev).reshape(1, -1),
     )
     return work
+
+
+def _grow_canvas(canvas_u8: torch.Tensor, out_max_hw: Tuple[int, int]) -> torch.Tensor:
+    """A uint8 copy of the canvas, zero-padded at the bottom/right so every
+    blend window fits (only when the object envelope exceeds the canvas);
+    the caller crops the fringe away, dropping pixels that land there."""
+    h_c, w_c = canvas_u8.shape[:2]
+    grow_h = max(0, out_max_hw[0] - h_c)
+    grow_w = max(0, out_max_hw[1] - w_c)
+    work = canvas_u8.to(torch.uint8).clone()
+    if grow_h or grow_w:
+        work = torch.nn.functional.pad(work, (0, 0, 0, grow_w, 0, grow_h))
+    return work
+
+
+def composite_canvas(
+    canvas_u8: torch.Tensor,
+    objs_u8: torch.Tensor,
+    obj_hw,
+    boxes,
+    out_max_hw: Tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """Compose all objects onto the canvas in list order, with coefficient
+    traced f32 tables (port of ops/compose.py:143-184).
+
+    canvas_u8 [H, W, 4]; objs_u8 [N, Hm, Wm, 4] zero padded; obj_hw [N, 2]
+    (h, w); boxes [N, 4] (x1, y1, x2, y2). Box sizes floor at 1 px; a
+    negative or off-canvas origin drops the placement. The resample is the
+    exact fixed-point one (``resample_fixed``), so this equals the JAX
+    function under the tests' ``exact_traced_resample`` pin up to the
+    tables' own ±1-unit envelope. Returns a new uint8 [H, W, 4] canvas.
+    """
+    h_c, w_c = canvas_u8.shape[:2]
+    if out_max_hw is None:
+        out_max_hw = (h_c, w_c)
+    dev = canvas_u8.device
+    hw = torch.as_tensor(obj_hw, device=dev).to(torch.int64).reshape(-1, 2)
+    bx = torch.as_tensor(boxes, device=dev).to(torch.int64).reshape(-1, 4)
+    out_w = torch.clamp(bx[:, 2] - bx[:, 0], min=1)
+    out_h = torch.clamp(bx[:, 3] - bx[:, 1], min=1)
+    kh = build_coeffs_traced(hw[:, 1], out_w, objs_u8.shape[2], out_max_hw[1])
+    kv = build_coeffs_traced(hw[:, 0], out_h, objs_u8.shape[1], out_max_hw[0])
+    same = ((out_h == hw[:, 0]) & (out_w == hw[:, 1])).tolist()
+    origins = bx[:, :2].tolist()
+    work = _grow_canvas(canvas_u8, out_max_hw)
+    for k in range(objs_u8.shape[0]):
+        resized = resize_with_tables(objs_u8[k].to(dev), kh[k], kv[k], same[k])
+        _blend_window(work, resized, origins[k][0], origins[k][1])
+    return work[:h_c, :w_c].contiguous()
+
+
+def composite_batch(canvases, objs, obj_hw, boxes,
+                    out_max_hw: Tuple[int, int] | None = None) -> torch.Tensor:
+    """:func:`composite_canvas` over a batch: canvases [B, H, W, 4], objects
+    [B, N, Hm, Wm, 4], sizes [B, N, 2], boxes [B, N, 4] -> [B, H, W, 4]."""
+    return torch.stack([
+        composite_canvas(canvases[b], objs[b], obj_hw[b], boxes[b], out_max_hw)
+        for b in range(canvases.shape[0])
+    ])
 
 
 def composite_exact(

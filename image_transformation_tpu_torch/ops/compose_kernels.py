@@ -1,38 +1,60 @@
-"""K1: the fused exact resize + alpha-over kernel and its plain version.
+"""The port's fused compose kernels, their wrappers and plain versions.
 
-Counterpart of image_transformation_tpu/ops/compose_pallas.py's gen-2
-path (``fused_v2_host_tables_prep`` -> ``_fused_v2_exact_apply`` ->
-``_make_fused_kernel_v2``). The kernel itself is CUDA C++ for sm_90a in
-``csrc/fused_compose.cu``; this module holds
+Counterpart of image_transformation_tpu/ops/compose_pallas.py (gen-2 at
+:2456-2722, gen-3 and the window restore at :745-826 and :3541-4138). The
+kernels are CUDA C++ for sm_90a under ``csrc/``; every wrapper launches
+its kernel for a CUDA tensor (or raises) and runs its plain PyTorch version
+for a CPU tensor, and raises ``LAUNCHES[name]`` by one per launching call.
 
-- :func:`fused_tables_prep`: the host side — Pillow-exact int32 coefficient
-  tables and the live/identity flags, in the layout K1 takes;
-- :func:`fused_compose`: the wrapper. On a CUDA tensor it launches K1 (or
-  raises); on a CPU tensor it runs :func:`fused_compose_reference`;
-- :func:`fused_compose_reference`: the plain PyTorch version, same
-  signature, built from ops.resize and ops.compose;
-- ``LAUNCHES``: the count of K1 launches, raised by one per launch.
+K1, the gen-2 contract (``csrc/fused_compose.cu``): exact resample from
+host-built Pillow tables, then alpha-over, on u8 RGBA canvases.
 
-Both update the canvas in place and return it. The output is bit-exact vs
-PIL (LANCZOS resize, then ``Image.alpha_composite``).
+- :func:`fused_tables_prep`: Pillow-exact int32 tables and live/identity
+  flags, in the layout K1 takes;
+- :func:`fused_compose` (wrapper) and :func:`fused_compose_reference`.
+
+K2, the gen-3 contract (``csrc/fused_v3.cu``): tables built on the device
+from four sizes per object (meta columns 6-9), resample, alpha-over into
+the padded packed int32 plane. K3 (``csrc/restore_windows.cu``): solid fill
+of the previous render's windows.
+
+- geometry and packing: :func:`window_extents`, :func:`fused_canvas_pad_hw`,
+  :func:`planarize_objects`, :func:`pack_rgba_scalar`, the meta functions;
+- :func:`fused_v3` / :func:`fused_v3_reference`,
+  :func:`restore_windows` / :func:`restore_windows_reference`;
+- the programs: :func:`composite_batch_fused_v3`,
+  :func:`render_solid_fused_v3_program`,
+  :func:`render_solid_fused_v3_reuse_program`,
+  :func:`render_gradient_fused_v3_program`.
+
+The packed plane is a signed int32 ``[B, hp, wp]`` whose little-endian bytes
+are RGBA; the kernels update it in place where JAX donates it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .compose import _blend_window
-from .resize import build_coeffs_host, resize_with_tables
+from .resize import (
+    build_coeffs_host,
+    build_coeffs_traced,
+    premultiply_rgba,
+    resample_fixed,
+    resize_with_tables,
+    unpremultiply_rgba,
+)
 
 FLAG_LIVE = 1
 FLAG_IDENTITY = 2
 
-#: K1 launches since the last reset (one per fused_compose call on CUDA)
-LAUNCHES = {"fused_compose": 0}
+#: launches since the last reset (one per launching wrapper call on CUDA)
+LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "restore_windows": 0}
 
 _MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z, which carries B*N
 
@@ -143,15 +165,21 @@ def fused_compose_reference(
     return canvas
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = {
+    "fused_compose_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "fused_v3_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "restore_windows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+}
 
 
-def _kernel_entry():
+def _kernel_entry(name: str):
+    """The C entry ``name`` of the kernels' library (built on first use),
+    with its argument types set: pointers and the stream as c_void_p."""
     from ._build import load_library
 
-    fn = load_library().fused_compose_launch
-    if fn.argtypes != _ARGTYPES:
-        fn.argtypes = _ARGTYPES
+    fn = getattr(load_library(), name)
+    if fn.argtypes != _ARGTYPES[name]:
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -191,7 +219,7 @@ def fused_compose(
         raise ValueError(f"B*N = {B * N} exceeds the kernel's grid limit {_MAX_GRID_Z}")
     if canvas.data_ptr() % 4 or objects.data_ptr() % 4:
         raise ValueError("canvas and objects must be 4-byte aligned (uchar4 pixels)")
-    fn = _kernel_entry()
+    fn = _kernel_entry("fused_compose_launch")
     dev = canvas.device
     tmp = torch.empty((B, N, 4, ph, mw), dtype=torch.uint8, device=dev)
     res = torch.empty((B, N, mh, mw, 4), dtype=torch.uint8, device=dev)
@@ -206,3 +234,530 @@ def fused_compose(
         raise RuntimeError(f"fused_compose: kernel launch failed with CUDA error {rc}")
     LAUNCHES["fused_compose"] += 1
     return canvas
+
+
+# ------------------ gen-3 geometry and packing (plain torch) ------------------
+
+#: Rec.709 luminance weights of the run statistic
+REC709 = (0.2126, 0.7152, 0.0722)
+_META_COLS = 10  # ws_x ws_y dx dy same valid in_h in_w out_h out_w
+#: u8 scratch a K2 launch may hold; the wrapper walks larger batches in chunks
+_V3_SCRATCH_BYTES = 1 << 30
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def window_extents(out_hw: Tuple[int, int]) -> Tuple[int, int]:
+    """Window size of an object envelope: its extent plus the slack of an
+    origin quantised down to (8, 128) multiples."""
+    return _round_up(out_hw[0] + 8, 8), _round_up(out_hw[1] + 128, 128)
+
+
+def _static_window_extents(static_obj_hw, out_max_hw: Tuple[int, int]):
+    """Per-object window extents from static asset sizes (each object's
+    padded extent capped at the envelope, plus the origin slack)."""
+    mh_a, mw_a = out_max_hw
+    return tuple(
+        window_extents((min(_round_up(max(int(h), 1), 8), mh_a),
+                        min(_round_up(max(int(w), 1), 128), mw_a)))
+        for h, w in static_obj_hw
+    )
+
+
+def fused_canvas_pad_hw(canvas_hw: Tuple[int, int],
+                        out_max_hw: Tuple[int, int]) -> Tuple[int, int]:
+    """Padded plane extent the gen-3 programs render into."""
+    MH, MW = window_extents((_round_up(out_max_hw[0], 8), _round_up(out_max_hw[1], 128)))
+    return max(_round_up(canvas_hw[0], 8), MH), max(_round_up(canvas_hw[1], 128), MW)
+
+
+def _envelope(objs_p: torch.Tensor, out_max_hw) -> Tuple[int, int]:
+    """(mh_a, mw_a): the tile-aligned output envelope (default: the planar
+    objects' padded extent)."""
+    if out_max_hw is None:
+        out_max_hw = (objs_p.shape[3], objs_p.shape[4])
+    return _round_up(out_max_hw[0], 8), _round_up(out_max_hw[1], 128)
+
+
+def planarize_objects(objs: torch.Tensor) -> torch.Tensor:
+    """[B, N, ph, pw, 4] u8 -> planar [B, N, 4, ph_a, pw_a], zero padded to
+    (8, 128) multiples. Run once per objects tensor, not per render."""
+    ph, pw = objs.shape[2], objs.shape[3]
+    padded = torch.nn.functional.pad(
+        objs, (0, 0, 0, _round_up(pw, 128) - pw, 0, _round_up(ph, 8) - ph)
+    )
+    return padded.permute(0, 1, 4, 2, 3).contiguous()
+
+
+def pack_rgba_scalar(bg_rgba: Tuple[int, int, int, int]) -> int:
+    """(r, g, b, a) -> little-endian packed RGBA as a signed int32 value."""
+    r, g, b, a = (int(v) & 255 for v in bg_rgba)
+    packed = r | (g << 8) | (b << 16) | (a << 24)
+    return packed - (1 << 32) if packed >= 1 << 31 else packed
+
+
+def packed_to_u8_np(packed_np) -> np.ndarray:
+    """Host view of a packed plane as uint8 RGBA [..., H, W, 4] (no copy
+    when the array is contiguous)."""
+    arr = np.ascontiguousarray(packed_np)
+    return arr.view(np.uint8).reshape(*arr.shape, 4)
+
+
+def packed_to_u8(packed: torch.Tensor) -> torch.Tensor:
+    """A packed int32 [..., H, W] tensor as uint8 RGBA [..., H, W, 4]."""
+    packed = packed.contiguous()
+    return packed.view(torch.uint8).view(*packed.shape, 4)
+
+
+def packed_luma(crop_i32: torch.Tensor) -> torch.Tensor:
+    """Mean Rec.709 luminance per canvas of a packed batch [B, H, W], f32.
+
+    The RGB bytes of the (possibly strided) crop go to float16 (exact for
+    0..255) and are summed per channel with float32 accumulation, torch's
+    one mixed-precision reduction that reads its input without a cast copy
+    (an int64 sum of the bytes first copies them all to int64, which costs
+    ~4x the time at 1080p B=256). The JAX package reduces float32
+    luminances; the two agree to float32 rounding (~1e-6 relative)."""
+    B, H, W = crop_i32.shape
+    rgb = crop_i32.view(torch.uint8).unflatten(-1, (W, 4))[..., :3].to(torch.float16)
+    sums = rgb.sum(dim=(1, 2), dtype=torch.float32)
+    wr, wg, wb = REC709
+    return (wr * sums[:, 0] + wg * sums[:, 1] + wb * sums[:, 2]) / max(1, H * W)
+
+
+def _long(x, device=None) -> torch.Tensor:
+    """int64 tensor of ``x`` (a tensor, or a host array copied once)."""
+    if torch.is_tensor(x):
+        return x.to(device=device or x.device, dtype=torch.int64)
+    return torch.tensor(np.asarray(x), dtype=torch.int64, device=device)
+
+
+def _cap(x: torch.Tensor, cap) -> torch.Tensor:
+    """min(x, cap) for an int cap or a tensor of caps."""
+    return torch.minimum(x, cap) if torch.is_tensor(cap) else x.clamp(max=cap)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(values: Tuple[Tuple[int, ...], ...], dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """A small constant table on the device, uploaded once per (values,
+    device) so that a render step makes no host-to-device copy."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _window_meta6(boxes: torch.Tensor, canvas_hw, origin_cap=None, same=None):
+    """[B, N, 6] int32 (ws_x, ws_y, dx, dy, same, valid): window origins
+    quantised down to (8, 128) multiples and capped at ``origin_cap``
+    ((max_ws_y, max_ws_x), ints or [1, N] tensors), the object's offset
+    inside its window, and ``valid`` = 0 for an origin off the canvas."""
+    h_c, w_c = canvas_hw
+    x1, y1 = boxes[..., 0], boxes[..., 1]
+    drop = (x1 < 0) | (y1 < 0) | (x1 >= w_c) | (y1 >= h_c)
+    x1c = x1.clamp(0, w_c)
+    y1c = y1.clamp(0, h_c)
+    ws_x = torch.div(x1c, 128, rounding_mode="floor") * 128
+    ws_y = torch.div(y1c, 8, rounding_mode="floor") * 8
+    if origin_cap is not None:
+        ws_y = _cap(ws_y, origin_cap[0])
+        ws_x = _cap(ws_x, origin_cap[1])
+    same_col = torch.zeros_like(x1) if same is None else same.to(x1.dtype)
+    return torch.stack(
+        [ws_x, ws_y, x1c - ws_x, y1c - ws_y, same_col, (~drop).to(x1.dtype)], dim=-1
+    ).to(torch.int32)
+
+
+def _fused_v3_meta(obj_hw, boxes, canvas_hw, pad_hw, window_hw, static_win=None):
+    """[B, N, 10] int32 gen-3 meta: the window meta plus (in_h, in_w, out_h,
+    out_w). Target sizes clamp to the window envelope (``cap_w - 128``,
+    ``cap_h - 8``; per object with ``static_win``), so an oversized box
+    renders a cropped scale, and origins cap at ``hp - cap_h`` /
+    ``wp - cap_w`` so each window ends inside the plane."""
+    boxes = _long(boxes)
+    obj_hw = _long(obj_hw, boxes.device)
+    obj_hw = obj_hw.expand(*boxes.shape[:-1], 2)
+    hp, wp = pad_hw
+    if static_win is None:
+        cap_h, cap_w = window_hw
+    else:
+        caps = _device_table(tuple(static_win), torch.int64, boxes.device)
+        cap_h, cap_w = caps[None, :, 0], caps[None, :, 1]
+    w = _cap((boxes[..., 2] - boxes[..., 0]).clamp(min=1), cap_w - 128)
+    h = _cap((boxes[..., 3] - boxes[..., 1]).clamp(min=1), cap_h - 8)
+    same = (w == obj_hw[..., 1]) & (h == obj_hw[..., 0])
+    meta6 = _window_meta6(boxes, canvas_hw, (hp - cap_h, wp - cap_w), same)
+    sizes = torch.stack([obj_hw[..., 0], obj_hw[..., 1], h, w], dim=-1)
+    return torch.cat([meta6, sizes.to(torch.int32)], dim=-1).contiguous()
+
+
+def _restore_meta_static(boxes, canvas_hw, pad_hw, static_win):
+    """[B, N, 2] int32 (x, y) window origins for the per-object restore:
+    the gen-3 origin rule with each object's own extents as the cap."""
+    boxes = _long(boxes)
+    h_c, w_c = canvas_hw
+    hp, wp = pad_hw
+    caps = _device_table(tuple(static_win), torch.int64, boxes.device)
+    x1c = boxes[..., 0].clamp(0, w_c)
+    y1c = boxes[..., 1].clamp(0, h_c)
+    rs_x = torch.minimum(torch.div(x1c, 128, rounding_mode="floor") * 128,
+                         (wp - caps[:, 1])[None, :])
+    rs_y = torch.minimum(torch.div(y1c, 8, rounding_mode="floor") * 8,
+                         (hp - caps[:, 0])[None, :])
+    return torch.stack([rs_x, rs_y], dim=-1).to(torch.int32).contiguous()
+
+
+# ------------------------------ K2: gen-3 ------------------------------
+
+def _check_v3_args(plane, objs_p, meta, out_max_hw) -> None:
+    """Raise on anything K2 does not take: device, dtype, shape, layout."""
+    named = dict(plane=plane, objs_p=objs_p, meta=meta)
+    dtypes = dict(plane=torch.int32, objs_p=torch.uint8, meta=torch.int32)
+    for name, t in named.items():
+        if not torch.is_tensor(t):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != dtypes[name]:
+            raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
+        if t.device != plane.device:
+            raise ValueError(f"{name} is on {t.device}, plane on {plane.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if plane.dim() != 3:
+        raise ValueError(f"plane must be [B, hp, wp], got {tuple(plane.shape)}")
+    B = plane.shape[0]
+    if objs_p.dim() != 5 or objs_p.shape[2] != 4 or objs_p.shape[0] not in (1, B):
+        raise ValueError(
+            f"objs_p must be planar [1 or B, N, 4, ph, pw], got {tuple(objs_p.shape)}"
+        )
+    if tuple(meta.shape) != (B, objs_p.shape[1], _META_COLS):
+        raise ValueError(f"meta must be [B, N, {_META_COLS}], got {tuple(meta.shape)}")
+    if min(out_max_hw) < 1:
+        raise ValueError(f"out_max_hw must be positive, got {out_max_hw}")
+
+
+def fused_v3_reference(plane: torch.Tensor, objs_p: torch.Tensor,
+                       meta: torch.Tensor, out_max_hw: Tuple[int, int]) -> torch.Tensor:
+    """Plain PyTorch version of K2. Builds every table with the f32 table code
+    (ops.resize.build_coeffs_traced), resamples each live placement with the
+    exact float64 resample, and alpha-overs it in object order; updates
+    ``plane`` in place and returns it."""
+    _check_v3_args(plane, objs_p, meta, out_max_hw)
+    B, hp, wp = plane.shape
+    _, N, _, ph, pw = objs_p.shape
+    mh, mw = out_max_hw
+    m = meta.to(torch.int64)
+    in_h, in_w = m[..., 6].clamp(0, ph), m[..., 7].clamp(0, pw)
+    out_h, out_w = m[..., 8].clamp(0, mh), m[..., 9].clamp(0, mw)
+    kh = build_coeffs_traced(in_w, out_w, pw, mw)  # [B, N, mw, pw]
+    kv = build_coeffs_traced(in_h, out_h, ph, mh)  # [B, N, mh, ph]
+    sizes = torch.stack([in_h, in_w, out_h, out_w], -1).tolist()
+    meta_h = m.tolist()
+    canvas_u8 = packed_to_u8(plane)  # a view: blends write the plane
+    shared = objs_p.shape[0] == 1
+    for b in range(B):
+        for k in range(N):
+            ws_x, ws_y, dx, dy, same, valid = meta_h[b][k][:6]
+            if valid <= 0:
+                continue
+            ih, iw, oh, ow = sizes[b][k]
+            obj = objs_p[0 if shared else b, k]  # [4, ph, pw]
+            if same > 0:
+                res = obj[:, :oh, :ow].permute(1, 2, 0).to(torch.int32)
+            else:
+                src = premultiply_rgba(obj[:, :ih, :iw].permute(1, 2, 0))
+                res = unpremultiply_rgba(
+                    resample_fixed(src, kh[b, k, :ow, :iw], kv[b, k, :oh, :ih])
+                )
+            _blend_window(canvas_u8[b], res, ws_x + dx, ws_y + dy)
+    return plane
+
+
+def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
+             out_max_hw: Tuple[int, int]) -> torch.Tensor:
+    """Resample every live placement with tables built from its sizes and
+    alpha-over it into its window of the packed plane, in object order.
+    Updates ``plane`` IN PLACE and returns it.
+
+    plane  i32 [B, hp, wp]            packed RGBA
+    objs_p u8  [Bo, N, 4, ph, pw]     planar objects, Bo == 1 (shared) or B
+    meta   i32 [B, N, 10]             from :func:`_fused_v3_meta`
+    out_max_hw (mh, mw)               the output envelope (scratch extents)
+
+    On a CUDA device this launches K2 (``csrc/fused_v3.cu``) on the current
+    stream, over chunks of canvases that keep its scratch under
+    ``_V3_SCRATCH_BYTES``, and raises if a launch fails; on the CPU it runs
+    :func:`fused_v3_reference`.
+    """
+    if plane.device.type == "cpu":
+        return fused_v3_reference(plane, objs_p, meta, out_max_hw)
+    _check_v3_args(plane, objs_p, meta, out_max_hw)
+    if plane.device.type != "cuda":
+        raise ValueError(f"fused_v3 runs on cuda or cpu, not {plane.device}")
+    B, hp, wp = plane.shape
+    Bo, N, _, ph, pw = objs_p.shape
+    mh, mw = (int(v) for v in out_max_hw)
+    if min(B, N, hp, wp, ph, pw) == 0:
+        return plane
+    per_canvas = N * (4 * ph * mw + 4 * mh * mw)
+    chunk = max(1, min(B, _V3_SCRATCH_BYTES // per_canvas))
+    fn = _kernel_entry("fused_v3_launch")
+    dev = plane.device
+    tmp = torch.empty((chunk, N, 4, ph, mw), dtype=torch.uint8, device=dev)
+    res = torch.empty((chunk, N, mh, mw, 4), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for b0 in range(0, B, chunk):
+            nb = min(chunk, B - b0)
+            rc = fn(
+                plane[b0].data_ptr(), objs_p[0 if Bo == 1 else b0].data_ptr(),
+                meta[b0].data_ptr(), tmp.data_ptr(), res.data_ptr(),
+                nb, Bo, N, hp, wp, ph, pw, mh, mw, stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"fused_v3: kernel launch failed with CUDA error {rc}")
+    LAUNCHES["fused_v3"] += 1
+    return plane
+
+
+# --------------------------- K3: window restore ---------------------------
+
+def _check_restore_args(plane, origins, extents) -> None:
+    for name, t in dict(plane=plane, origins=origins).items():
+        if not torch.is_tensor(t) or t.dtype != torch.int32:
+            raise TypeError(f"{name} must be an int32 torch.Tensor")
+        if t.device != plane.device:
+            raise ValueError(f"{name} is on {t.device}, plane on {plane.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if plane.dim() != 3:
+        raise ValueError(f"plane must be [B, hp, wp], got {tuple(plane.shape)}")
+    if origins.dim() != 3 or origins.shape[0] != plane.shape[0] or origins.shape[2] != 2:
+        raise ValueError(f"origins must be [B, N, 2], got {tuple(origins.shape)}")
+    if len(extents) != origins.shape[1] or any(len(e) != 2 for e in extents):
+        raise ValueError(f"extents must be N (h, w) pairs, got {extents}")
+
+
+def restore_windows_reference(plane: torch.Tensor, origins: torch.Tensor,
+                              extents: Sequence[Tuple[int, int]],
+                              bg_packed: int) -> torch.Tensor:
+    """Plain PyTorch version of K3: fill each window (origin (x, y) of
+    placement (b, k), extent (h, w) of object k) with ``bg_packed``, cut at
+    the plane's edge. Updates ``plane`` in place and returns it."""
+    _check_restore_args(plane, origins, extents)
+    for b, row in enumerate(origins.tolist()):
+        for k, (x, y) in enumerate(row):
+            h, w = extents[k]
+            plane[b, max(y, 0):max(y + h, 0), max(x, 0):max(x + w, 0)] = bg_packed
+    return plane
+
+
+def restore_windows(plane: torch.Tensor, origins: torch.Tensor,
+                    extents: Sequence[Tuple[int, int]], bg_packed: int) -> torch.Tensor:
+    """Fill every window of the previous render with the solid background.
+    Updates ``plane`` IN PLACE and returns it.
+
+    plane i32 [B, hp, wp]; origins i32 [B, N, 2] (x, y); extents: N host
+    (h, w) pairs, the window extent of object k. On a CUDA device this launches K3 (``csrc/restore_windows.cu``)
+    and raises if the launch fails; on the CPU it runs
+    :func:`restore_windows_reference`.
+    """
+    if plane.device.type == "cpu":
+        return restore_windows_reference(plane, origins, extents, bg_packed)
+    _check_restore_args(plane, origins, extents)
+    if plane.device.type != "cuda":
+        raise ValueError(f"restore_windows runs on cuda or cpu, not {plane.device}")
+    B, hp, wp = plane.shape
+    N = origins.shape[1]
+    if min(B, N, hp, wp) == 0:
+        return plane
+    extents = tuple((int(h), int(w)) for h, w in extents)
+    ext_d = _device_table(extents, torch.int32, plane.device)
+    max_wh = max(h for h, _ in extents)
+    fn = _kernel_entry("restore_windows_launch")
+    with torch.cuda.device(plane.device):
+        stream = torch.cuda.current_stream(plane.device).cuda_stream
+        rc = fn(plane.data_ptr(), origins.data_ptr(), ext_d.data_ptr(),
+                B, N, hp, wp, max_wh, int(bg_packed), stream)
+    if rc != 0:
+        raise RuntimeError(f"restore_windows: kernel launch failed with CUDA error {rc}")
+    LAUNCHES["restore_windows"] += 1
+    return plane
+
+
+# ------------------------------ the programs ------------------------------
+
+def _static_hw(static_obj_hw, n: int):
+    if static_obj_hw is not None and len(static_obj_hw) != n:
+        raise ValueError(f"static_obj_hw has {len(static_obj_hw)} entries for {n} objects")
+    return static_obj_hw
+
+
+def _render_meta(objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw):
+    """(meta, (mh_a, mw_a), (hp, wp)) of a gen-3 render. Per-object window
+    caps apply with ``pipelined`` and ``static_obj_hw`` (the JAX package's
+    STATIC_WINDOWS default, compose_pallas.py:3809)."""
+    mh_a, mw_a = _envelope(objs_p, out_max_hw)
+    hp, wp = fused_canvas_pad_hw(canvas_hw, (mh_a, mw_a))
+    static_obj_hw = _static_hw(static_obj_hw, objs_p.shape[1])
+    use_sw = pipelined and static_obj_hw is not None
+    static_win = _static_window_extents(static_obj_hw, (mh_a, mw_a)) if use_sw else None
+    boxes = _long(boxes, objs_p.device)
+    meta = _fused_v3_meta(obj_hw, boxes, canvas_hw, (hp, wp),
+                          window_extents((mh_a, mw_a)), static_win)
+    return meta, (mh_a, mw_a), (hp, wp)
+
+
+def composite_batch_fused_v3(
+    canvases,
+    objs: torch.Tensor,
+    obj_hw,
+    boxes,
+    out_max_hw: Tuple[int, int] | None = None,
+    packed_out: bool = False,
+    pipelined: bool = False,
+    bg_rgba: Tuple[int, int, int, int] | None = None,
+    canvas_hw: Tuple[int, int] | None = None,
+    padded_out: bool = False,
+    static_obj_hw: Sequence[Tuple[int, int]] | None = None,
+) -> torch.Tensor:
+    """Gen-3 compose of a batch (port of compose_pallas.py:3675).
+
+    canvases: u8 [B, H, W, 4], packed i32 [B, H, W], or None with
+    ``bg_rgba`` and ``canvas_hw`` (a solid plane made on the device; the
+    batch then comes from ``boxes``). objs: u8 [Bo, N, ph, pw, 4] or planar
+    [Bo, N, 4, ph_a, pw_a], Bo == 1 (shared by all canvases) or B. Returns
+    u8 [B, H, W, 4], or with ``packed_out`` the packed i32 [B, H, W] (the
+    whole padded plane with ``padded_out``). Runs K2 on a CUDA device.
+    """
+    if canvases is None:
+        if bg_rgba is None or canvas_hw is None:
+            raise ValueError("canvases=None requires bg_rgba and canvas_hw")
+        h_c, w_c = canvas_hw
+    else:
+        h_c, w_c = canvases.shape[1], canvases.shape[2]
+    if padded_out and not packed_out:
+        raise ValueError("padded_out requires packed_out")
+    objs_p = objs if objs.shape[4] != 4 else planarize_objects(objs)
+    meta, env, (hp, wp) = _render_meta(
+        objs_p, obj_hw, boxes, (h_c, w_c), out_max_hw, pipelined, static_obj_hw
+    )
+    B = meta.shape[0]
+    if canvases is None:
+        plane = torch.full((B, hp, wp), pack_rgba_scalar(bg_rgba),
+                           dtype=torch.int32, device=objs_p.device)
+    else:
+        plane = torch.zeros((B, hp, wp), dtype=torch.int32, device=objs_p.device)
+        packed = canvases if canvases.dtype == torch.int32 else (
+            canvases.contiguous().view(torch.int32).reshape(B, h_c, w_c)
+        )
+        plane[:, :h_c, :w_c] = packed
+    fused_v3(plane, objs_p, meta, env)
+    out = plane if padded_out else plane[:, :h_c, :w_c]
+    return out if packed_out else packed_to_u8(out)
+
+
+def render_solid_fused_v3_program(
+    objs_p: torch.Tensor,
+    obj_hw,
+    boxes,
+    canvas_hw: Tuple[int, int],
+    bg_packed: int,
+    out_max_hw: Tuple[int, int] | None = None,
+    pipelined: bool = False,
+    static_obj_hw: Sequence[Tuple[int, int]] | None = None,
+) -> torch.Tensor:
+    """Solid-background batch render (port of compose_pallas.py:3763): a
+    plane filled with ``bg_packed`` on the device, then K2. Returns the
+    padded packed plane [B, hp, wp]; crop with
+    ``packed_to_u8(out)[:, :H, :W]``. ``objs_p`` is planar and may be
+    shared ([1, N, ...]); the batch comes from ``boxes``."""
+    meta, env, (hp, wp) = _render_meta(
+        objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw
+    )
+    plane = torch.full((meta.shape[0], hp, wp), bg_packed, dtype=torch.int32,
+                       device=objs_p.device)
+    return fused_v3(plane, objs_p, meta, env)
+
+
+def render_solid_fused_v3_reuse_program(
+    prev_v: torch.Tensor,
+    prev_boxes,
+    objs_p: torch.Tensor,
+    obj_hw,
+    boxes,
+    canvas_hw: Tuple[int, int],
+    bg_packed: int,
+    out_max_hw: Tuple[int, int] | None = None,
+    static_obj_hw: Sequence[Tuple[int, int]] | None = None,
+    pipelined: bool = False,
+) -> torch.Tensor:
+    """Framebuffer-reuse render (port of compose_pallas.py:4011): restore
+    the windows the previous render (``prev_boxes``) touched on ``prev_v``
+    with K3, then compose ``boxes`` with K2.
+
+    Where JAX donates ``prev_v``, the port restores and composes IN PLACE
+    on the same tensor and returns it. ``prev_v`` must come from a render
+    with the same ``bg_packed``, canvas, envelope and objects. With
+    ``static_obj_hw`` and B >= 2 each restore window has its object's own
+    extents (which must bound the previous boxes' output sizes: true for
+    every downscale-only layout); otherwise the batch-max window.
+    """
+    mh_a, mw_a = _envelope(objs_p, out_max_hw)
+    MH, MW = window_extents((mh_a, mw_a))
+    hp, wp = fused_canvas_pad_hw(canvas_hw, (mh_a, mw_a))
+    if tuple(prev_v.shape[1:]) != (hp, wp):
+        raise ValueError(f"prev_v plane {tuple(prev_v.shape[1:])} != expected {(hp, wp)}")
+    N = objs_p.shape[1]
+    dev = prev_v.device
+    prev_boxes = _long(prev_boxes, dev)
+    if static_obj_hw is not None and prev_v.shape[0] >= 2:
+        static_win = _static_window_extents(_static_hw(static_obj_hw, N), (mh_a, mw_a))
+        origins = _restore_meta_static(prev_boxes, canvas_hw, (hp, wp), static_win)
+        extents = static_win
+    else:
+        origins = _fused_v3_meta(obj_hw, prev_boxes, canvas_hw, (hp, wp), (MH, MW))
+        origins = origins[..., :2].contiguous()
+        extents = ((MH, MW),) * N
+    restore_windows(prev_v, origins, extents, bg_packed)
+    meta, env, _ = _render_meta(
+        objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw
+    )
+    return fused_v3(prev_v, objs_p, meta, env)
+
+
+def render_gradient_fused_v3_program(
+    objs_p: torch.Tensor,
+    obj_hw,
+    boxes,
+    canvas_hw: Tuple[int, int],
+    c1,
+    c2,
+    horizontal: bool,
+    out_max_hw: Tuple[int, int] | None = None,
+    static_obj_hw: Sequence[Tuple[int, int]] | None = None,
+) -> torch.Tensor:
+    """Gradient-background batch render (port of compose_pallas.py:4088):
+    the linear c1 -> c2 ramp per canvas (c1, c2 u8 [B, 3]; float64 weights
+    on the host, float32 lerp, truncating u8 cast, as the reference's
+    fill_gradient) made as the packed plane, clamped at t = 1 in the pad,
+    then K2. Returns the padded packed plane [B, hp, wp]."""
+    meta, env, (hp, wp) = _render_meta(
+        objs_p, obj_hw, boxes, canvas_hw, out_max_hw, False, static_obj_hw
+    )
+    H, W = canvas_hw
+    dev = objs_p.device
+    n, limit = (wp, W) if horizontal else (hp, H)
+    t64 = np.clip(np.arange(n) / max(1, limit - 1), 0.0, 1.0)
+    t = torch.from_numpy(t64.astype(np.float32)).to(dev)
+    w1 = torch.from_numpy((1.0 - t64).astype(np.float32)).to(dev)
+    c1 = torch.as_tensor(c1, device=dev).to(torch.float32)
+    c2 = torch.as_tensor(c2, device=dev).to(torch.float32)
+    ramp = w1[None, :, None] * c1[:, None, :] + t[None, :, None] * c2[:, None, :]
+    rgb = ramp.to(torch.uint8).to(torch.int32)  # truncation, as the reference
+    packed = rgb[..., 0] | (rgb[..., 1] << 8) | (rgb[..., 2] << 16) | pack_rgba_scalar(
+        (0, 0, 0, 255)
+    )
+    B = meta.shape[0]
+    shape = (B, hp, wp)
+    plane = (packed[:, None, :] if horizontal else packed[:, :, None]).expand(shape)
+    return fused_v3(plane.contiguous(), objs_p, meta, env)

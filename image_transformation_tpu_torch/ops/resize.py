@@ -17,6 +17,13 @@ RGBA handling matches Pillow bit for bit: premultiply to "RGBa" (MULDIV255
 rounding), resample each channel, unpremultiply (floor(255*c/a), alpha==0
 passthrough), with Pillow's plain-copy shortcut when sizes are unchanged.
 
+Two coefficient table paths, as in the JAX package: the host tables
+(float64, bit-exact vs Pillow) and the traced float32 tables
+(``build_coeffs_traced``, resize.py:142-193), which builds the tables from
+size tensors on the device. The float32 path follows the JAX op order
+exactly and sums each row's weights tap by tap in index order, so the CUDA
+kernel that builds the same tables (csrc/fused_v3.cu) equals it bit for bit.
+
 Every function computes on the device of the tensors it is given.
 """
 
@@ -90,6 +97,110 @@ def build_coeffs_host(
         ).astype(np.int32)
         table[o, xmin:xmax] = q
     return table
+
+
+# ------------------------- filters (f32, traced) -------------------------
+
+# lanczos3 as a degree-12 polynomial in u = x^2 (the JAX package's Chebyshev
+# fit, resize.py:56-62). Every constant is an exact float32 value.
+_LANCZOS3_POLY_U = (
+    0.019992724061012268, 0.12934572994709015, -0.43056443333625793,
+    0.2683068513870239, 0.3336562514305115, -0.6404303312301636,
+    0.4925920069217682, -0.2359950840473175, 0.08007098734378815,
+    -0.020507415756583214, 0.004155285656452179, -0.0007197138038463891,
+    9.71919289440848e-05,
+)
+_F32 = torch.float32
+
+
+def _f32(v: float) -> torch.Tensor:
+    return torch.tensor(v, dtype=_F32)
+
+
+def _filter_lanczos3(x: torch.Tensor) -> torch.Tensor:
+    # t clamps to the fit domain: out-of-support entries are masked to zero
+    t = torch.minimum(x * x * _f32(1.0 / 4.5) - _f32(1.0), _f32(1.0))
+    acc = torch.full_like(t, _LANCZOS3_POLY_U[-1])
+    for c in reversed(_LANCZOS3_POLY_U[:-1]):
+        acc = acc * t + _f32(c)
+    return torch.where(x.abs() < 3.0, acc, _f32(0.0))
+
+
+def _filter_bilinear(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(_f32(1.0) - x.abs(), min=0.0)
+
+
+_FILTERS = {"lanczos": _filter_lanczos3, "bilinear": _filter_bilinear}
+
+
+# ------------------- traced coefficient tables (f32) -------------------
+
+def _trunc_f32(x: torch.Tensor) -> torch.Tensor:
+    """Round toward zero (the floor form of the JAX in-kernel tables)."""
+    return torch.where(x >= 0, torch.floor(x), -torch.floor(-x))
+
+
+def resample_coeff_matrix(
+    in_size,
+    out_size,
+    in_max: int,
+    out_max: int,
+    method: str = "lanczos",
+    out_offset=0,
+) -> torch.Tensor:
+    """Float32 [..., out_max, in_max] normalized coefficients for size
+    tensors ``in_size`` / ``out_size`` of any (equal) shape ``[...]``.
+
+    Rows outside [out_offset, out_offset + out_size) and taps >= in_size
+    are zero. Op order is the JAX function's: ``center = (o + 0.5) * scale``,
+    window bounds by truncation, ``w / wsum``, then the row mask. ``wsum``
+    adds the taps one by one in index order (a loop over taps, vectorised
+    over rows), which is the order the CUDA kernel uses.
+    """
+    filt = _FILTERS[method]
+    in_f = torch.as_tensor(in_size).to(_F32)
+    dev = in_f.device
+    out_f = torch.clamp(torch.as_tensor(out_size, device=dev).to(_F32), min=1.0)
+    off = torch.as_tensor(out_offset, device=dev).to(_F32)
+    scale = in_f / out_f
+    fs = torch.clamp(scale, min=1.0)
+    support = _f32(_SUPPORT[method]) * fs
+    inv_fs = _f32(1.0) / fs
+    lead = scale.shape
+    col = (..., None, None)
+
+    o = torch.arange(out_max, dtype=_F32, device=dev)[:, None] - off[..., None, None]
+    i = torch.arange(in_max, dtype=_F32, device=dev)[None, :]
+    center = (o + 0.5) * scale[col]
+    xmin = torch.clamp(_trunc_f32(center - support[col] + 0.5), min=0.0)
+    xmin = torch.minimum(xmin, in_f[col])
+    xmax = torch.clamp(_trunc_f32(center + support[col] + 0.5), min=0.0)
+    xmax = torch.minimum(xmax, in_f[col])
+    window = (i >= xmin) & (i < xmax)
+    w = filt((i - center + 0.5) * inv_fs[col]) * window.to(_F32)
+    w = w.expand(*lead, out_max, in_max)
+    wsum = torch.zeros((*lead, out_max), dtype=_F32, device=dev)
+    for tap in range(in_max):
+        wsum = wsum + w[..., tap]
+    wsum = wsum[..., None]
+    w = w / torch.where(wsum != 0.0, wsum, _f32(1.0))
+    return w * ((o >= 0) & (o < out_f[col])).to(_F32)
+
+
+def quantize_coeffs(w_f32: torch.Tensor) -> torch.Tensor:
+    """Quantize normalized f32 coefficients to Pillow's int32 fixed point
+    (half away from zero, then truncation)."""
+    scaled = w_f32 * _f32(float(1 << PRECISION_BITS))
+    half = torch.where(w_f32 < 0, _f32(-0.5), _f32(0.5))
+    return _trunc_f32(scaled + half).to(torch.int32)
+
+
+def build_coeffs_traced(in_size, out_size, in_max: int, out_max: int,
+                        method: str = "lanczos", out_offset=0) -> torch.Tensor:
+    """int32 [..., out_max, in_max] Pillow tables from size tensors."""
+    return quantize_coeffs(
+        resample_coeff_matrix(in_size, out_size, in_max, out_max, method, out_offset)
+    )
 
 
 # ----------------------- exact fixed-point resample -----------------------

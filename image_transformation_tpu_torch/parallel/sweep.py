@@ -1,15 +1,155 @@
-"""Batch placement helpers.
+"""Batched rendering: the batched compose step, the solid render step and
+the throughput sweep.
 
-Port of image_transformation_tpu/parallel/sweep.py, so far only
-:func:`random_downscale_boxes` (a numpy copy); the batched render step and
-the throughput sweep come with the batched bench path.
+Port of image_transformation_tpu/parallel/sweep.py (:29-385, :476-704).
+The JAX module's fallback chain (gen-3 -> gen-2 -> clamped -> XLA, with
+latched tiers, ``fallback_mode``, ``step.fallback`` and ``precompile``) is
+a TPU/JAX mechanism and collapses here to one rule: on a CUDA device every
+step runs the gen-3 kernels (K2, and K3 on reuse) or raises; on the CPU it
+runs their plain versions. The device is explicit: each factory takes a
+``device`` (default ``cuda``), and asking for CUDA without a card raises.
+The multi-GPU forms (``mesh=``) wait for the multi-GPU item.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..ops.compose_kernels import (
+    REC709,
+    composite_batch_fused_v3,
+    pack_rgba_scalar,
+    packed_luma,
+    planarize_objects,
+    render_solid_fused_v3_program,
+    render_solid_fused_v3_reuse_program,
+)
+
+KERNELS = ("xla", "pallas")
+STATS = ("luma", "fence")
+
+
+def _check_kernel(kernel: str) -> None:
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+
+
+def _on(x, dev: torch.device) -> torch.Tensor:
+    """``x`` as a tensor on ``dev`` (host arrays are copied)."""
+    return x.to(dev) if torch.is_tensor(x) else torch.from_numpy(np.array(x)).to(dev)
+
+
+def _luma_u8(out_u8: torch.Tensor) -> torch.Tensor:
+    """Per-canvas Rec.709 luminance of u8 RGBA [B, H, W, 4], f32 (the
+    one-pass reduction of ``packed_luma``)."""
+    sums = out_u8[..., :3].to(torch.float16).sum(dim=(1, 2), dtype=torch.float32)
+    wr, wg, wb = REC709
+    lum = wr * sums[:, 0] + wg * sums[:, 1] + wb * sums[:, 2]
+    return lum / max(1, out_u8.shape[1] * out_u8.shape[2])
+
+
+def make_batched_compose(
+    out_max_hw: Tuple[int, int],
+    kernel: str = "xla",
+    static_obj_hw: Optional[Tuple[Tuple[int, int], ...]] = None,
+    device: str = "cuda",
+):
+    """Step ``(canvases [B,H,W,4], objs [B,N,Hm,Wm,4], obj_hw, boxes) ->
+    (composed u8 [B,H,W,4], mean luminance [B])``.
+
+    ``kernel`` keeps the JAX package's values so that a caller can drive
+    both packages alike. In JAX "xla" selects the XLA windowed compose and
+    "pallas" the gen-3 Pallas kernel; here both select the gen-3 compose
+    (:func:`composite_batch_fused_v3`): K2 on a CUDA device, its plain
+    version on the CPU. The port's XLA-path counterpart,
+    ``ops.compose.composite_batch``, equals it on downscale-only boxes.
+    Inputs are moved to ``device``.
+    """
+    _check_kernel(kernel)
+    dev = resolve_device(device)
+
+    def step(canvases, objs, obj_hw, boxes):
+        out = composite_batch_fused_v3(
+            _on(canvases, dev), _on(objs, dev), _on(obj_hw, dev), _on(boxes, dev),
+            out_max_hw, static_obj_hw=static_obj_hw,
+        )
+        return out, _luma_u8(out)
+
+    return step
+
+
+batched_compose_step = make_batched_compose
+"""Alias kept for the public parallel API."""
+
+
+def make_solid_render_step(
+    canvas_hw: Tuple[int, int],
+    out_max_hw: Tuple[int, int],
+    bg_rgba: Tuple[int, int, int, int] = (128, 128, 128, 255),
+    static_obj_hw: Optional[Tuple[Tuple[int, int], ...]] = None,
+    reuse: bool = True,
+    stat: str = "luma",
+    device: str = "cuda",
+):
+    """Solid-background render step: ``step(canvases, objs, obj_hw, boxes)
+    -> (plane, stat)``, the signature of :func:`make_batched_compose`'s
+    steps. ``canvases`` is ignored (the background is made on the device);
+    ``plane`` is the padded packed int32 plane [B, hp, wp], whose bytes
+    crop to RGBA (``packed_to_u8(plane)[:, :H, :W]``). ``objs`` may be u8
+    [Bo, N, ph, pw, 4] or planar, with Bo == 1 shared by the B canvases of
+    ``boxes``. The render runs with the JAX step's settings (pipelined,
+    per-object windows when ``static_obj_hw`` is given).
+
+    ``stat``: "luma" is each canvas's mean Rec.709 luminance of the crop
+    (the sweep's run statistic); "fence" is ``sum(plane[:, 0, :128])`` as
+    int32, a 512-byte-per-canvas read that proves the render ran.
+
+    With ``reuse=True`` (default) each call after the first restores only
+    the windows the previous call drew (K3) and composes IN PLACE on the
+    previous call's plane: the ``plane`` a call returns is overwritten by
+    the next call. A caller that keeps planes passes ``reuse=False`` or
+    copies them; ``step.release()`` drops the kept plane.
+    """
+    if stat not in STATS:
+        raise ValueError(f"stat must be one of {STATS}, got {stat!r}")
+    dev = resolve_device(device)
+    H, W = canvas_hw
+    bg = pack_rgba_scalar(bg_rgba)
+    state: List = [None]  # (plane, boxes) of the previous call
+
+    def run_stat(plane):
+        if stat == "fence":
+            return plane[:, 0, :128].sum(dim=1, dtype=torch.int64).to(torch.int32)
+        return packed_luma(plane[:, :H, :W])
+
+    def step(canvases, objs, obj_hw, boxes):
+        del canvases  # the background comes from bg_rgba
+        objs = _on(objs, dev)
+        objs_p = objs if objs.shape[4] != 4 else planarize_objects(objs)
+        obj_hw = _on(obj_hw, dev)
+        boxes = _on(boxes, dev)
+        if state[0] is None:
+            plane = render_solid_fused_v3_program(
+                objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
+                pipelined=True, static_obj_hw=static_obj_hw,
+            )
+        else:
+            prev, prev_boxes = state[0]
+            plane = render_solid_fused_v3_reuse_program(
+                prev, prev_boxes, objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
+                static_obj_hw=static_obj_hw, pipelined=True,
+            )
+        if reuse:
+            state[0] = (plane, boxes)
+        return plane, run_stat(plane)
+
+    step.release = lambda: state.__setitem__(0, None)
+    return step
 
 
 def random_downscale_boxes(
@@ -32,3 +172,138 @@ def random_downscale_boxes(
         y1 = int(rng.integers(0, max(1, H - h)))
         boxes[k] = (x1, y1, x1 + w, y1 + h)
     return boxes
+
+
+def _fence(stat: torch.Tensor) -> None:
+    """Wait for the step that produced ``stat`` (a device-to-host copy)."""
+    stat.cpu()
+
+
+def throughput_sweep(
+    bundles,
+    ratios: List[str],
+    batch_per_ratio: int,
+    pixel_budget_size: Optional[Tuple[int, int]] = None,
+    mesh=None,
+    spatial: bool = False,
+    warmup: int = 1,
+    reps: int = 3,
+    seed: int = 0,
+    kernel: str = "xla",
+    superbatch: int = 0,
+    device: str = "cuda",
+) -> Dict:
+    """Bundles x ratios end-to-end composites/sec (JAX sweep.py:498).
+
+    ``bundles`` is a list of core.bundle.Bundle; they pad to one shared
+    envelope. Per ratio: B = ``batch_per_ratio`` canvases with random
+    downscale boxes from ``seed``. ``kernel="pallas"`` runs the solid
+    render step (fresh render, then reuse renders: K2 + K3 on a CUDA
+    device) on shared planar objects made once; ``kernel="xla"`` runs the
+    batched compose step on uploaded solid canvases (K2 on a CUDA device).
+    On the CPU both run the plain versions. ``superbatch=K`` (pallas
+    only): each rep is K reuse steps over K box sets. Warm-up reps
+    (``warmup``, and for pallas one more so the reuse path is warm too)
+    end in a fence each; the timed region is ``reps`` reps and one fence
+    on the last stat. Returns the timing and throughput per ratio and
+    overall.
+    """
+    from ..layout.canvas import compute_canvas_size
+
+    if mesh is not None:
+        raise NotImplementedError("the multi-GPU sweep (mesh=) is not ported yet")
+    del spatial  # only meaningful with a mesh
+    _check_kernel(kernel)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    n_max = max(len(b.meta) for b in bundles)
+    pad_h = max(m.height for b in bundles for m in b.meta.values())
+    pad_w = max(m.width for b in bundles for m in b.meta.values())
+    arrays = [b.to_arrays(n_max=n_max, pad_hw=(pad_h, pad_w)) for b in bundles]
+    # per-object-index static size cover across bundles (exact sizes when
+    # there is one bundle)
+    hw_cover = np.maximum.reduce([a.obj_hw for a in arrays])
+    static_hw = tuple(tuple(int(v) for v in row) for row in hw_cover)
+
+    results = {"ratios": {}, "total_canvases": 0, "total_seconds": 0.0}
+    for ratio in ratios:
+        if pixel_budget_size is not None:
+            W, H = compute_canvas_size(pixel_budget_size, ratio, verbose=False)
+        else:
+            W, H = compute_canvas_size(bundles[0].background.size, ratio, verbose=False)
+        B = batch_per_ratio
+        objs = np.zeros((B, n_max, pad_h, pad_w, 4), np.uint8)
+        hw = np.zeros((B, n_max, 2), np.int32)
+        boxes = np.zeros((B, n_max, 4), np.int32)
+        for i in range(B):
+            arr = arrays[i % len(arrays)]
+            objs[i] = arr.objects
+            hw[i] = arr.obj_hw
+            boxes[i] = random_downscale_boxes(rng, arr.obj_hw, (H, W))
+        hw_d = torch.from_numpy(hw).to(dev)
+
+        if kernel == "pallas":
+            # one bundle: every canvas has the same objects, shared as [1, N]
+            objs_in = objs[:1] if len(arrays) == 1 else objs
+            objs_p = planarize_objects(torch.from_numpy(objs_in).to(dev))
+            step = make_solid_render_step((H, W), (pad_h, pad_w),
+                                          static_obj_hw=static_hw, device=str(dev))
+            k_steps = max(1, superbatch)
+            box_sets = [torch.from_numpy(boxes).to(dev)] + [
+                torch.from_numpy(np.stack([
+                    random_downscale_boxes(rng, hw[i], (H, W)) for i in range(B)
+                ])).to(dev)
+                for _ in range(k_steps - 1)
+            ]
+
+            def rep():
+                for bx in box_sets:
+                    _, stat = step(None, objs_p, hw_d, bx)
+                return stat
+
+            warm = max(1, warmup) + 1  # the second call is the first reuse
+            per_rep = B * k_steps
+        else:
+            canvases = torch.full((B, H, W, 4), 128, dtype=torch.uint8, device=dev)
+            canvases[..., 3] = 255
+            args = (canvases, torch.from_numpy(objs).to(dev), hw_d,
+                    torch.from_numpy(boxes).to(dev))
+            xla_step = make_batched_compose((pad_h, pad_w), kernel=kernel,
+                                            device=str(dev))
+
+            def rep():
+                return xla_step(*args)[1]
+
+            warm = max(1, warmup)
+            k_steps = 0
+            per_rep = B
+        for _ in range(warm):
+            _fence(rep())
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            stat = rep()
+        _fence(stat)
+        dt = time.perf_counter() - t0
+        results["ratios"][ratio] = {
+            "canvas": [W, H],
+            "batch": B,
+            "superbatch": k_steps if superbatch > 1 else 0,
+            "seconds_per_batch": dt / reps / max(1, k_steps),
+            "canvases_per_sec": per_rep * reps / dt,
+        }
+        results["total_canvases"] += per_rep * reps
+        results["total_seconds"] += dt
+    results["canvases_per_sec"] = (
+        results["total_canvases"] / results["total_seconds"]
+        if results["total_seconds"] else 0.0
+    )
+    return results
+
+
+__all__ = [
+    "batched_compose_step",
+    "make_batched_compose",
+    "make_solid_render_step",
+    "random_downscale_boxes",
+    "throughput_sweep",
+]

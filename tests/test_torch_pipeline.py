@@ -75,6 +75,16 @@ def test_port_imports_no_jax_after_cpu_engine_run():
         "e = ComposeEngine(b.to_arrays(), canvas, torch.device('cpu'))\n"
         "out = e.compose([{'object_id': 1, 'box': [10, 20, 110, 150]}])\n"
         "assert out.shape == (300, 400, 4) and not bool((out == 255).all())\n"
+        "from image_transformation_tpu_torch.parallel import throughput_sweep\n"
+        "from image_transformation_tpu_torch.ops import compose_kernels, resize\n"
+        "r = throughput_sweep([b], ['1:1'], 2, warmup=0, reps=1, kernel='pallas',"
+        " superbatch=2, device='cpu')\n"
+        "assert r['total_canvases'] == 4\n"
+        "o = compose_kernels.render_gradient_fused_v3_program(\n"
+        "    compose_kernels.planarize_objects(torch.from_numpy(b.to_arrays().objects)[None]),\n"
+        "    b.to_arrays().obj_hw[None], np.array([[[5, 5, 60, 60]] * len(b.meta)]),\n"
+        "    (120, 160), np.array([[1, 2, 3]]), np.array([[200, 100, 0]]), True)\n"
+        "assert o.shape[0] == 1\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'image_transformation_tpu.'))"
         " or m == 'image_transformation_tpu']\n"
         "assert not bad, bad\n"
