@@ -29,7 +29,17 @@ exits non-zero:
    the slice, throughput_sweep(kernel="pallas") at 1080p B=256 with
    warmup 1 and 5 reps, with the K2/K3 launch counts reset just before and
    read just after (both must be > 0), printing canvases/s;
-6. one JSON line of kernel results, the nvidia-smi line, and last
+6. hybrid path (squarespace, 1080x1920, B=64, boxes from seed 0 plus an
+   identity box and the edge box of benchmarks/validate_hw.py:100): for
+   each clamped x pipelined form of composite_batch_hybrid_packed, K4
+   (ops/compose_kernels.window_blend) against window_blend_reference on
+   that form's producer outputs, bit-exact, with median CUDA-event times
+   of both and of the producer; then the form itself, with the K4 launch
+   count reset just before and read just after (must be > 0), equal to
+   the port's composite_batch on the card; the packed_out plane's bytes
+   equal the u8 output; 4 canvases within 2/255 of PIL's own LANCZOS
+   resize + alpha_composite;
+7. one JSON line of kernel results, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -51,7 +61,14 @@ V3_SOURCE = "image_transformation_tpu_torch/csrc/fused_v3.cu"
 V3_REPLACES = "image_transformation_tpu/ops/compose_pallas.py:3081"
 RESTORE_SOURCE = "image_transformation_tpu_torch/csrc/restore_windows.cu"
 RESTORE_REPLACES = "image_transformation_tpu/ops/compose_pallas.py:3826"
+BLEND_SOURCE = "image_transformation_tpu_torch/csrc/window_blend.cu"
+BLEND_REPLACES = ("image_transformation_tpu/ops/compose_pallas.py:1210, :1457, :1581, "
+                  ":1907 (kernel-table rows 3, 5, 6, 10)")
+#: (name, clamped, pipelined): the four forms K4 replaces, by kernel-table row
+HYBRID_FORMS = (("row3", False, False), ("row5", False, True),
+                ("row6", True, False), ("row10", True, True))
 BATCH_HW = (1080, 1920)
+HYBRID_B = 64
 
 
 def smi_line() -> str:
@@ -398,6 +415,132 @@ def phase_batched(smi: str):
     return results, launches, sweep
 
 
+def _pil_canvas(bundle, hw, rgba, boxes):
+    """PIL's own compose of one solid canvas: LANCZOS resize +
+    alpha_composite in list order, placements off the canvas dropped."""
+    from PIL import Image
+
+    H, W = hw
+    canvas = Image.new("RGBA", (W, H), rgba)
+    for oid, (x1, y1, x2, y2) in zip(bundle.object_ids(), boxes.tolist()):
+        if x1 < 0 or y1 < 0 or x1 >= W or y1 >= H:
+            continue
+        obj = bundle.objects[oid].resize((max(1, x2 - x1), max(1, y2 - y1)), Image.LANCZOS)
+        canvas.alpha_composite(obj, dest=(x1, y1))
+    return canvas
+
+
+HYBRID_RGBA = (128, 128, 128, 255)
+
+
+def hybrid_inputs(device):
+    """The hybrid phase's batch on ``device``: (bundle, host boxes, canvases
+    u8 [B, H, W, 4] solid HYBRID_RGBA, objects [B, N, ph, pw, 4] (a
+    broadcast view of the shared squarespace objects), obj_hw, boxes,
+    envelope). Boxes from seed 0, plus an identity box and the edge box of
+    benchmarks/validate_hw.py:100 (hanging off the bottom-right corner)."""
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.parallel.sweep import random_downscale_boxes
+
+    bundle = load_bundle(ROOT / "data" / "squarespace")
+    arrays = bundle.to_arrays()
+    H, W = BATCH_HW
+    B, N = HYBRID_B, arrays.obj_hw.shape[0]
+    rng = np.random.default_rng(0)
+    boxes_np = np.stack([random_downscale_boxes(rng, arrays.obj_hw, (H, W)) for _ in range(B)])
+    oh0, ow0 = (int(v) for v in arrays.obj_hw[0])
+    boxes_np[0, 0] = [W - ow0 // 2, H - oh0 // 2, W + ow0 // 2, H + oh0 // 2]
+    boxes_np[1, 0] = [3, 5, 3 + ow0, 5 + oh0]
+    canvases = torch.tensor(HYBRID_RGBA, dtype=torch.uint8, device=device)
+    canvases = canvases.expand(B, H, W, 4).contiguous()
+    objs = torch.from_numpy(arrays.objects).to(device)[None].expand(B, *arrays.objects.shape)
+    hw = torch.from_numpy(np.broadcast_to(arrays.obj_hw, (B, N, 2)).copy()).to(device)
+    boxes = torch.from_numpy(boxes_np).to(device)
+    env = (ck._round_up(objs.shape[2], 8), ck._round_up(objs.shape[3], 128))
+    return bundle, boxes_np, canvases, objs, hw, boxes, env
+
+
+def phase_hybrid(smi: str):
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.ops.compose import composite_batch
+
+    bundle, boxes_np, canvases, objs, hw, boxes, env = hybrid_inputs(torch.device("cuda", 0))
+    B, H, W = canvases.shape[:3]
+    N = objs.shape[1]
+
+    t0 = time.perf_counter()
+    ref = composite_batch(canvases, objs, hw, boxes, env)
+    torch.cuda.synchronize()
+    print(f"[hybrid] canvas {H}x{W} B={B} N={N} envelope {env[0]}x{env[1]}: the port's "
+          f"composite_batch on the card took {time.perf_counter() - t0:.3f} s")
+
+    results, total_launches, outs = {}, 0, {}
+    for name, clamped, pipelined in HYBRID_FORMS:
+        producer = ck._hybrid_producer_clamped if clamped else ck._hybrid_producer
+        produce = lambda: producer(canvases, objs, hw, boxes, env, "lanczos")  # noqa: E731
+        canvas_v, src_v, meta = produce()
+        got = ck.window_blend(canvas_v.clone(), src_v, meta)
+        want = ck.window_blend_reference(canvas_v.clone(), src_v, meta)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        changed = int((got != canvas_v).sum())
+        if not torch.equal(got, want):
+            raise AssertionError(f"[hybrid] {name}: K4 != plain version, max abs err {err}")
+        if changed == 0:
+            raise AssertionError(f"[hybrid] {name}: K4 changed no pixel")
+        work_k, work_p = canvas_v.clone(), canvas_v.clone()
+        ms, plain_ms, raw = _in_turns(lambda: ck.window_blend(work_k, src_v, meta),
+                                      lambda: ck.window_blend_reference(work_p, src_v, meta),
+                                      10, 2)
+        producer_ms = cuda_ms(produce, 3)
+        plane_hw = tuple(canvas_v.shape[1:])
+        del got, want, work_k, work_p, canvas_v, src_v, meta
+
+        # the slice's main path for this form: launch counts around it alone
+        ck.reset_launch_counts()
+        out = ck.composite_batch_hybrid_packed(canvases, objs, hw, boxes, clamped=clamped,
+                                               pipelined=pipelined)
+        torch.cuda.synchronize()
+        launches = ck.LAUNCHES["window_blend"]
+        if launches <= 0:
+            raise AssertionError(f"[hybrid] {name}: the compose launched K4 {launches} times")
+        if not torch.equal(out, ref):
+            diff = int((out.to(torch.int32) - ref.to(torch.int32)).abs().max())
+            raise AssertionError(f"[hybrid] {name}: != composite_batch, max abs err {diff}")
+        total_launches += launches
+        outs[name] = out
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, producer_ms=producer_ms)
+        print(f"[hybrid] {name} (clamped={clamped}, pipelined={pipelined}) plane "
+              f"{plane_hw[0]}x{plane_hw[1]}: K4 == plain (max abs err {err}, "
+              f"{changed} pixels changed); K4 {ms:.3f} ms "
+              f"({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms ({raw[2]:.3f}, "
+              f"{raw[3]:.3f}), producer {producer_ms:.3f} ms; compose == composite_batch, "
+              f"K4 launches {launches} on {smi}")
+        torch.cuda.empty_cache()
+
+    packed = ck.composite_batch_hybrid_packed(canvases, objs, hw, boxes, clamped=True,
+                                              packed_out=True)
+    if packed.dtype != torch.int32 or not torch.equal(ck.packed_to_u8(packed), outs["row6"]):
+        raise AssertionError("[hybrid] the packed_out plane's bytes != the u8 output")
+    pil_err = 0
+    for b in range(4):
+        pil = np.asarray(_pil_canvas(bundle, (H, W), HYBRID_RGBA, boxes_np[b]))
+        got = outs["row6"][b].cpu().numpy()
+        pil_err = max(pil_err, int(np.abs(got.astype(np.int32) - pil.astype(np.int32)).max()))
+    if pil_err > 2:
+        raise AssertionError(f"[hybrid] clamped output vs PIL: max abs err {pil_err} > 2")
+    print(f"[hybrid] packed_out bytes == u8 output; clamped output vs PIL on 4 canvases: "
+          f"max abs err {pil_err} (limit 2)")
+    return results, total_launches
+
+
 def main_smoke() -> int:
     smi = phase_device()
     import torch
@@ -406,6 +549,7 @@ def main_smoke() -> int:
     kernel = phase_kernel(smi)
     launches = phase_main_path()
     batched, batched_launches, _ = phase_batched(smi)
+    hybrid, hybrid_launches = phase_hybrid(smi)
     cli, serve = kernel["cli_9x16_b1"], kernel["serve_1080p_b64"]
     print(json.dumps({"kernels": [{
         "name": "fused_compose",
@@ -428,7 +572,18 @@ def main_smoke() -> int:
     } for name, source, replaces in (
         ("fused_v3", V3_SOURCE, V3_REPLACES),
         ("restore_windows", RESTORE_SOURCE, RESTORE_REPLACES),
-    )]}))
+    )] + [{
+        "name": "window_blend",
+        "route": "cuda",
+        "source": BLEND_SOURCE,
+        "replaces": BLEND_REPLACES,
+        "launches": hybrid_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in hybrid.values()),
+        # the default clamped form (row 6); every form's times follow
+        "ms": hybrid["row6"]["ms"],
+        "plain_ms": hybrid["row6"]["plain_ms"],
+        "forms": hybrid,
+    }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -27,6 +27,19 @@ of the previous render's windows.
   :func:`render_solid_fused_v3_reuse_program`,
   :func:`render_gradient_fused_v3_program`.
 
+K4, the two-program hybrid (``csrc/window_blend.cu``; JAX :1177-1207,
+:1210-1261, :1457-2084, :2283-2453): a plain-torch producer resizes every
+object into packed sources ``[B, N, mh_a, mw_a]`` and pads the canvases into
+the packed plane; K4 alpha-overs the sources onto the plane through their
+windows.
+
+- the producers :func:`_hybrid_producer` (unclamped, the plane padded by a
+  window) and :func:`_hybrid_producer_clamped`;
+- :func:`window_blend` / :func:`window_blend_reference`, behind the four
+  named counterparts of the TPU launchers (rows 3, 5, 6 and 10 of the
+  kernel table);
+- :func:`composite_batch_hybrid_packed`.
+
 The packed plane is a signed int32 ``[B, hp, wp]`` whose little-endian bytes
 are RGBA; the kernels update it in place where JAX donates it.
 """
@@ -40,12 +53,13 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from .compose import _blend_window
+from .compose import _blend_window, alpha_over_u8
 from .resize import (
     build_coeffs_host,
     build_coeffs_traced,
     premultiply_rgba,
     resample_fixed,
+    resize_u8,
     resize_with_tables,
     unpremultiply_rgba,
 )
@@ -54,9 +68,10 @@ FLAG_LIVE = 1
 FLAG_IDENTITY = 2
 
 #: launches since the last reset (one per launching wrapper call on CUDA)
-LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "restore_windows": 0}
+LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "restore_windows": 0, "window_blend": 0}
 
 _MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z, which carries B*N
+_MAX_GRID_X = (1 << 31) - 1  # CUDA's limit on gridDim.x
 
 
 def reset_launch_counts() -> None:
@@ -169,6 +184,7 @@ _ARGTYPES = {
     "fused_compose_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     "fused_v3_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     "restore_windows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "window_blend_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
 
@@ -761,3 +777,241 @@ def render_gradient_fused_v3_program(
     shape = (B, hp, wp)
     plane = (packed[:, None, :] if horizontal else packed[:, :, None]).expand(shape)
     return fused_v3(plane.contiguous(), objs_p, meta, env)
+
+
+# ------------------ K4: the two-program hybrid compose ------------------
+
+def _legacy_canvas_pad_hw(canvas_hw: Tuple[int, int],
+                          window_hw: Tuple[int, int]) -> Tuple[int, int]:
+    """Padded plane extent of the UNCLAMPED window blends (JAX :774): the
+    canvas pads by a full window on the bottom/right, so no window origin
+    needs a cap."""
+    h_c, w_c = canvas_hw
+    MH, MW = window_hw
+    return _round_up(h_c + MH, 8), _round_up(w_c + MW, 128)
+
+
+def _unpack_rgba_u32(v_i32: torch.Tensor):
+    """Packed little-endian RGBA (int32 bits) -> (r, g, b, a) int32. The
+    mask after each shift drops the sign of pixels with alpha >= 128."""
+    return tuple((v_i32 >> s) & 255 for s in (0, 8, 16, 24))
+
+
+def _pack_rgba_u32(r, g, b, a) -> torch.Tensor:
+    """(r, g, b, a) of 0..255 -> packed little-endian RGBA int32, through
+    the bytes (``a << 24`` would overflow int32 for alpha >= 128)."""
+    return torch.stack([r, g, b, a], dim=-1).to(torch.uint8).view(torch.int32)[..., 0]
+
+
+def _alpha_over_packed(dst_v: torch.Tensor, src_v: torch.Tensor) -> torch.Tensor:
+    """Pillow-exact alpha-over on packed pixels (int32 bit patterns)."""
+    out = alpha_over_u8(torch.stack(_unpack_rgba_u32(dst_v), dim=-1),
+                        torch.stack(_unpack_rgba_u32(src_v), dim=-1))
+    return _pack_rgba_u32(*out.unbind(-1))
+
+
+def _hybrid_producer_impl(canvases, objs, obj_hw, boxes, out_max_hw, method, clamp):
+    """Resize every object and build the packed plane and meta for K4 (port
+    of JAX :2283), on the canvases' device with no host round trip.
+
+    ``clamp=True`` caps window origins at ``(hp - MH, wp - MW)`` and pads
+    the plane only to (8, 128) multiples and one window; ``clamp=False``
+    pads it by a full window (:func:`_legacy_canvas_pad_hw`) and leaves the
+    origins uncapped. Returns (canvas_v i32 [B, hp, wp], a new plane holding
+    the canvases; src_v i32 [B, N, mh_a, mw_a], each object resized to its
+    box and cut at the envelope; meta i32 [B, N, 6])."""
+    B, h_c, w_c = canvases.shape[:3]
+    mh_a, mw_a = out_max_hw
+    MH, MW = window_extents((mh_a, mw_a))
+    if clamp:
+        hp, wp = max(_round_up(h_c, 8), MH), max(_round_up(w_c, 128), MW)
+    else:
+        hp, wp = _legacy_canvas_pad_hw((h_c, w_c), (MH, MW))
+    dev = canvases.device
+    boxes = _long(boxes, dev)
+    obj_hw = _long(obj_hw, dev)
+    w = (boxes[..., 2] - boxes[..., 0]).clamp(min=1)
+    h = (boxes[..., 3] - boxes[..., 1]).clamp(min=1)
+    resized = resize_u8(objs, (obj_hw[..., 0], obj_hw[..., 1]), (h, w), (mh_a, mw_a), method)
+    src_v = resized.view(torch.int32)[..., 0]
+    meta = _window_meta6(boxes, (h_c, w_c), origin_cap=(hp - MH, wp - MW) if clamp else None)
+    canvas_v = torch.zeros((B, hp, wp), dtype=torch.int32, device=dev)
+    canvas_v[:, :h_c, :w_c] = canvases.contiguous().view(torch.int32)[..., 0]
+    return canvas_v, src_v, meta
+
+
+def _hybrid_producer_clamped(canvases, objs, obj_hw, boxes, out_max_hw, method):
+    return _hybrid_producer_impl(canvases, objs, obj_hw, boxes, out_max_hw, method,
+                                 clamp=True)
+
+
+def _hybrid_producer(canvases, objs, obj_hw, boxes, out_max_hw, method):
+    return _hybrid_producer_impl(canvases, objs, obj_hw, boxes, out_max_hw, method,
+                                 clamp=False)
+
+
+def _check_blend_args(plane, src, meta) -> None:
+    """Raise on anything K4 does not take: device, dtype, shape, layout."""
+    for name, t in dict(plane=plane, src=src, meta=meta).items():
+        if not torch.is_tensor(t) or t.dtype != torch.int32:
+            raise TypeError(f"{name} must be an int32 torch.Tensor")
+        if t.device != plane.device:
+            raise ValueError(f"{name} is on {t.device}, plane on {plane.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if plane.dim() != 3:
+        raise ValueError(f"plane must be [B, hp, wp], got {tuple(plane.shape)}")
+    if src.dim() != 4 or src.shape[0] != plane.shape[0]:
+        raise ValueError(f"src must be [B, N, mh, mw], got {tuple(src.shape)}")
+    if tuple(meta.shape) != (*src.shape[:2], 6):
+        raise ValueError(f"meta must be [B, N, 6], got {tuple(meta.shape)}")
+
+
+def window_blend_reference(plane: torch.Tensor, src: torch.Tensor,
+                           meta: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4: for each canvas b and each object k in
+    list order whose ``valid`` is set, alpha-over ``src[b, k]`` onto the
+    plane with its top-left at ``(ws_x + dx, ws_y + dy)``, cut at the
+    plane's edge. Updates ``plane`` in place and returns it."""
+    _check_blend_args(plane, src, meta)
+    _, hp, wp = plane.shape
+    mh, mw = src.shape[2], src.shape[3]
+    for b, rows in enumerate(meta.tolist()):
+        for k, (ws_x, ws_y, dx, dy, _, valid) in enumerate(rows):
+            if valid <= 0:
+                continue
+            x, y = ws_x + dx, ws_y + dy
+            x0, y0 = max(x, 0), max(y, 0)
+            x1, y1 = min(x + mw, wp), min(y + mh, hp)
+            if x1 <= x0 or y1 <= y0:
+                continue
+            win = plane[b, y0:y1, x0:x1]
+            win.copy_(_alpha_over_packed(win, src[b, k, y0 - y:y1 - y, x0 - x:x1 - x]))
+    return plane
+
+
+def window_blend(plane: torch.Tensor, src: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+    """Alpha-over every valid object's packed source onto the packed plane
+    through its window, in list order. Updates ``plane`` IN PLACE and
+    returns it.
+
+    plane i32 [B, hp, wp]; src i32 [B, N, mh, mw] (packed RGBA, zero
+    outside each object's live region); meta i32 [B, N, 6] from
+    :func:`_window_meta6` (ws_x, ws_y, dx, dy, same, valid).
+
+    On a CUDA device this launches K4 (``csrc/window_blend.cu``) on the
+    current stream and raises if the launch fails; on the CPU it runs
+    :func:`window_blend_reference`.
+    """
+    if plane.device.type == "cpu":
+        return window_blend_reference(plane, src, meta)
+    _check_blend_args(plane, src, meta)
+    if plane.device.type != "cuda":
+        raise ValueError(f"window_blend runs on cuda or cpu, not {plane.device}")
+    B, hp, wp = plane.shape
+    N, mh, mw = src.shape[1], src.shape[2], src.shape[3]
+    if min(B, N, hp, wp, mh, mw) == 0:
+        return plane
+    if B * N > _MAX_GRID_X or max(-(-mh // 8), -(-mw // 32)) > _MAX_GRID_Z:
+        raise ValueError(f"B*N = {B * N} or the source extent {(mh, mw)} exceeds "
+                         "the kernel's grid limits")
+    fn = _kernel_entry("window_blend_launch")
+    with torch.cuda.device(plane.device):
+        stream = torch.cuda.current_stream(plane.device).cuda_stream
+        rc = fn(plane.data_ptr(), src.data_ptr(), meta.data_ptr(),
+                B, N, hp, wp, mh, mw, stream)
+    if rc != 0:
+        raise RuntimeError(f"window_blend: kernel launch failed with CUDA error {rc}")
+    LAUNCHES["window_blend"] += 1
+    return plane
+
+
+def _pallas_blend_packed(canvas_v: torch.Tensor, src_v: torch.Tensor,
+                         meta: torch.Tensor, interpret: bool = False) -> torch.Tensor:
+    """Counterpart of the four packed window-blend launchers: rows 3
+    (``_pallas_blend_packed`` :2332), 5 (``_pallas_blend_packed_pipelined``
+    :1516), 6 (``_pallas_blend_packed_clamped`` :1999) and 10
+    (``_pallas_blend_clamped_pipelined`` :1963). They differ only in the
+    TPU's memory schedule (grid over canvases or objects, single or double
+    buffered DMAs), which Hopper has no counterpart to, so all four are
+    :func:`window_blend` (K4). ``interpret`` is accepted and ignored.
+    Updates ``canvas_v`` in place and returns it."""
+    del interpret
+    return window_blend(canvas_v, src_v, meta)
+
+
+_pallas_blend_packed_pipelined = _pallas_blend_packed
+_pallas_blend_packed_clamped = _pallas_blend_packed
+_pallas_blend_clamped_pipelined = _pallas_blend_packed
+
+
+def _blend_clamped_finish_impl(canvas_v, src_v, meta, out_hw, interpret, packed):
+    """Clamped blend, then the crop to ``out_hw``: u8 RGBA [B, h_c, w_c, 4],
+    or with ``packed`` the packed int32 plane [B, h_c, w_c], contiguous
+    (JAX :2034)."""
+    out_v = _pallas_blend_packed_clamped(canvas_v, src_v, meta, interpret)
+    crop = out_v[:, :out_hw[0], :out_hw[1]]
+    return crop.contiguous() if packed else packed_to_u8(crop)
+
+
+def _pallas_blend_clamped_packed_out(canvas_v, src_v, meta, out_hw, interpret=False):
+    return _blend_clamped_finish_impl(canvas_v, src_v, meta, out_hw, interpret,
+                                      packed=True)
+
+
+def composite_batch_hybrid_packed(
+    canvases: torch.Tensor,
+    objs: torch.Tensor,
+    obj_hw,
+    boxes,
+    out_max_hw: Tuple[int, int] | None = None,
+    method: str = "lanczos",
+    interpret: bool = False,
+    pipelined: bool = False,
+    clamped: bool = False,
+    rowbaked: bool = False,
+    band: bool = False,
+    batchsrc: bool = False,
+    resident: bool = False,
+    packed_out: bool = False,
+) -> torch.Tensor:
+    """Two-program compose (port of JAX :2373): the producer resizes every
+    object with the traced tables and the exact resample, then K4 blends the
+    packed sources through their windows.
+
+    canvases u8 [B, H, W, 4] (never written); objs u8 [B, N, ph, pw, 4]
+    (a shared [1, N, ...] broadcasts); obj_hw [B, N, 2] (h, w); boxes
+    [B, N, 4]. Boxes resize to max(1, x2-x1) x max(1, y2-y1), cut at the
+    envelope ``out_max_hw`` (default (ph, pw)) rounded up to (8, 128); an
+    origin off the canvas drops the placement. Returns u8 [B, H, W, 4], or
+    with ``packed_out`` (the plain clamped path only) the packed int32
+    [B, H, W]. The output equals :func:`ops.compose.composite_batch` with
+    the rounded envelope. ``clamped`` and ``pipelined`` pick the JAX
+    launcher; all four run K4. ``interpret`` is ignored; ``rowbaked``,
+    ``band``, ``batchsrc`` and ``resident`` are not ported yet.
+    """
+    del interpret
+    if packed_out and not (clamped and not (band or batchsrc or resident
+                                            or pipelined or rowbaked)):
+        raise ValueError("packed_out is only supported on the default clamped path")
+    for name, on in (("rowbaked", rowbaked), ("band", band), ("batchsrc", batchsrc),
+                     ("resident", resident)):
+        if on:
+            raise NotImplementedError(
+                f"composite_batch_hybrid_packed({name}=True) is not ported yet (ROADMAP B5)"
+            )
+    h_c, w_c = canvases.shape[1], canvases.shape[2]
+    if out_max_hw is None:
+        out_max_hw = (objs.shape[2], objs.shape[3])
+    env = (_round_up(out_max_hw[0], 8), _round_up(out_max_hw[1], 128))
+    producer = _hybrid_producer_clamped if clamped else _hybrid_producer
+    canvas_v, src_v, meta = producer(canvases, objs, obj_hw, boxes, env, method)
+    if packed_out:
+        return _pallas_blend_clamped_packed_out(canvas_v, src_v, meta, (h_c, w_c))
+    if clamped and not pipelined:
+        return _blend_clamped_finish_impl(canvas_v, src_v, meta, (h_c, w_c), False,
+                                          packed=False)
+    blend =_pallas_blend_clamped_pipelined if clamped else (
+        _pallas_blend_packed_pipelined if pipelined else _pallas_blend_packed
+    )
+    return packed_to_u8(blend(canvas_v, src_v, meta)[:, :h_c, :w_c])

@@ -216,15 +216,16 @@ def resample_fixed(
 ) -> torch.Tensor:
     """Two-pass fixed-point resample, bit-exact vs Pillow given its tables.
 
-    img: [Hin_max, Win_max, C] holding uint8 values (any integer dtype).
-    kh_i32: [Wout_max, Win_max]; kv_i32: [Hout_max, Hin_max].
-    Returns int32 [Hout_max, Wout_max, C] of uint8 values.
+    img: [..., Hin_max, Win_max, C] holding uint8 values (any integer dtype).
+    kh_i32: [..., Wout_max, Win_max]; kv_i32: [..., Hout_max, Hin_max].
+    Leading dims broadcast. Returns int32 [..., Hout_max, Wout_max, C] of
+    uint8 values.
     """
     f = torch.float64
     # horizontal pass first (Pillow order): tmp[h,o,c] = clip8(half + Σ_i kh[o,i] p[h,i,c])
-    ss_h = torch.einsum("hic,oi->hoc", img.to(f), kh_i32.to(f)) + _HALF
+    ss_h = torch.einsum("...hic,...oi->...hoc", img.to(f), kh_i32.to(f)) + _HALF
     tmp = _clip8(ss_h)
-    ss_v = torch.einsum("hwc,oh->owc", tmp.to(f), kv_i32.to(f)) + _HALF
+    ss_v = torch.einsum("...hwc,...oh->...owc", tmp.to(f), kv_i32.to(f)) + _HALF
     return _clip8(ss_v)
 
 
@@ -275,6 +276,50 @@ def resize_with_tables(
     src = premultiply_rgba(img) if channels == 4 else img
     out = resample_fixed(src, kh_i32, kv_i32)
     return unpremultiply_rgba(out) if channels == 4 else out
+
+
+def resize_f32(
+    img: torch.Tensor,
+    in_hw,
+    out_hw,
+    out_max_hw: Tuple[int, int],
+    method: str = "lanczos",
+) -> torch.Tensor:
+    """Traced-size resample (port of JAX resize.py:464-486), batched.
+
+    img: [..., Hm, Wm, C] holding uint8 values; in_hw = (in_h, in_w) and
+    out_hw = (out_h, out_w): size tensors (or ints) of shape [...]. The
+    tables come from the f32 table code (:func:`build_coeffs_traced`) and
+    the resample is the exact float64 one, so CPU and CUDA agree bit for
+    bit (JAX's traced resample is an f32 dot that may flip ±1). Where the
+    output size equals the input size, Pillow's plain copy of the padded
+    source is taken (chosen per item on the device, no host sync).
+    Returns float32 [..., out_max_h, out_max_w, C]; live region
+    [out_h, out_w], zeros beyond.
+    """
+    dev = img.device
+    in_h, in_w, out_h, out_w = (
+        torch.as_tensor(v, device=dev).to(torch.int64) for v in (*in_hw, *out_hw)
+    )
+    out_max_h, out_max_w = out_max_hw
+    hm, wm, channels = img.shape[-3:]
+    kh = build_coeffs_traced(in_w, out_w, wm, out_max_w, method)
+    kv = build_coeffs_traced(in_h, out_h, hm, out_max_h, method)
+    src = premultiply_rgba(img) if channels == 4 else img
+    out = resample_fixed(src, kh, kv)
+    if channels == 4:
+        out = unpremultiply_rgba(out)
+    copy_h, copy_w = min(hm, out_max_h), min(wm, out_max_w)
+    passthrough = torch.zeros_like(out)
+    passthrough[..., :copy_h, :copy_w, :] = img[..., :copy_h, :copy_w, :].to(torch.int32)
+    same = (out_h == in_h) & (out_w == in_w)
+    return torch.where(same[..., None, None, None], passthrough, out).to(torch.float32)
+
+
+def resize_u8(img: torch.Tensor, in_hw, out_hw, out_max_hw: Tuple[int, int],
+              method: str = "lanczos") -> torch.Tensor:
+    """uint8 form of :func:`resize_f32` (port of JAX resize.py:489-499)."""
+    return resize_f32(img, in_hw, out_hw, out_max_hw, method).to(torch.uint8)
 
 
 def resize_exact_u8(

@@ -4,11 +4,14 @@ the throughput sweep.
 Port of image_transformation_tpu/parallel/sweep.py (:29-385, :476-704).
 The JAX module's fallback chain (gen-3 -> gen-2 -> clamped -> XLA, with
 latched tiers, ``fallback_mode``, ``step.fallback`` and ``precompile``) is
-a TPU/JAX mechanism and collapses here to one rule: on a CUDA device every
-step runs the gen-3 kernels (K2, and K3 on reuse) or raises; on the CPU it
-runs their plain versions. The device is explicit: each factory takes a
-``device`` (default ``cuda``), and asking for CUDA without a card raises.
-The multi-GPU forms (``mesh=``) wait for the multi-GPU item.
+a TPU/JAX mechanism and collapses here to one rule: on a CUDA device a
+``kernel="pallas"`` step runs the gen-3 kernels (K2, and K3 on reuse) or
+raises; on the CPU it runs their plain versions. ``kernel="xla"`` is JAX's
+XLA step, which runs no kernel: the plain compose
+(``ops.compose.composite_batch``) on the given device. The device is
+explicit: each factory takes a ``device`` (default ``cuda``), and asking
+for CUDA without a card raises. The multi-GPU forms (``mesh=``) wait for
+the multi-GPU item.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..ops.compose import composite_batch
 from ..ops.compose_kernels import (
     REC709,
     composite_batch_fused_v3,
@@ -62,22 +66,24 @@ def make_batched_compose(
     """Step ``(canvases [B,H,W,4], objs [B,N,Hm,Wm,4], obj_hw, boxes) ->
     (composed u8 [B,H,W,4], mean luminance [B])``.
 
-    ``kernel`` keeps the JAX package's values so that a caller can drive
-    both packages alike. In JAX "xla" selects the XLA windowed compose and
-    "pallas" the gen-3 Pallas kernel; here both select the gen-3 compose
-    (:func:`composite_batch_fused_v3`): K2 on a CUDA device, its plain
-    version on the CPU. The port's XLA-path counterpart,
-    ``ops.compose.composite_batch``, equals it on downscale-only boxes.
-    Inputs are moved to ``device``.
+    ``kernel`` takes the JAX package's values. "xla" is JAX's XLA step
+    (``composite_canvas`` under vmap, no Pallas): the plain compose
+    ``ops.compose.composite_batch``, which crops a box larger than
+    ``out_max_hw`` at the envelope. "pallas" is JAX's tier 0, the gen-3
+    compose (:func:`composite_batch_fused_v3`): K2 on a CUDA device, its
+    plain version on the CPU; gen-3 clamps an oversized box's target size
+    to its window and so renders another scale. The two agree on boxes
+    that fit the envelope. Inputs are moved to ``device``.
     """
     _check_kernel(kernel)
     dev = resolve_device(device)
 
     def step(canvases, objs, obj_hw, boxes):
-        out = composite_batch_fused_v3(
-            _on(canvases, dev), _on(objs, dev), _on(obj_hw, dev), _on(boxes, dev),
-            out_max_hw, static_obj_hw=static_obj_hw,
-        )
+        args = (_on(canvases, dev), _on(objs, dev), _on(obj_hw, dev), _on(boxes, dev))
+        if kernel == "xla":
+            out = composite_batch(*args, out_max_hw)
+        else:
+            out = composite_batch_fused_v3(*args, out_max_hw, static_obj_hw=static_obj_hw)
         return out, _luma_u8(out)
 
     return step
@@ -199,9 +205,10 @@ def throughput_sweep(
     envelope. Per ratio: B = ``batch_per_ratio`` canvases with random
     downscale boxes from ``seed``. ``kernel="pallas"`` runs the solid
     render step (fresh render, then reuse renders: K2 + K3 on a CUDA
-    device) on shared planar objects made once; ``kernel="xla"`` runs the
-    batched compose step on uploaded solid canvases (K2 on a CUDA device).
-    On the CPU both run the plain versions. ``superbatch=K`` (pallas
+    device) on shared planar objects made once, and on the CPU their plain
+    versions; ``kernel="xla"`` runs the batched compose step on uploaded
+    solid canvases (the plain compose, as JAX's "xla" sweep times XLA with
+    no Pallas). ``superbatch=K`` (pallas
     only): each rep is K reuse steps over K box sets. Warm-up reps
     (``warmup``, and for pallas one more so the reuse path is warm too)
     end in a fence each; the timed region is ``reps`` reps and one fence

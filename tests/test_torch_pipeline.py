@@ -85,6 +85,12 @@ def test_port_imports_no_jax_after_cpu_engine_run():
         "    b.to_arrays().obj_hw[None], np.array([[[5, 5, 60, 60]] * len(b.meta)]),\n"
         "    (120, 160), np.array([[1, 2, 3]]), np.array([[200, 100, 0]]), True)\n"
         "assert o.shape[0] == 1\n"
+        "a = b.to_arrays()\n"
+        "h = compose_kernels.composite_batch_hybrid_packed(\n"
+        "    torch.full((1, 120, 160, 4), 255, dtype=torch.uint8),\n"
+        "    torch.from_numpy(a.objects)[None], a.obj_hw[None],\n"
+        "    np.array([[[5, 5, 60, 60]] * len(b.meta)]), clamped=True)\n"
+        "assert h.shape == (1, 120, 160, 4) and not bool((h == 255).all())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'image_transformation_tpu.'))"
         " or m == 'image_transformation_tpu']\n"
         "assert not bad, bad\n"

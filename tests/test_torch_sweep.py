@@ -74,6 +74,21 @@ def test_batched_compose_matches_jax(kernel, exact_traced_resample):
         make_batched_compose(pad, kernel="mosaic", device="cpu")
 
 
+def test_xla_step_crops_an_upscale_past_the_pad_as_jax(exact_traced_resample):
+    """kernel="xla" is JAX's XLA step: a box larger than ``out_max_hw`` is
+    resized to its full size and cut at the envelope. (A gen-3 step would
+    clamp the target size to its window and render another scale: max abs
+    diff 255 on ~45k pixels here.)"""
+    canvases, objs, hw, boxes, pad = _batch("audio_book", 1, 300, 520, 3)
+    assert tuple(hw[0, 0]) == (237, 186) and tuple(pad) == (237, 447)
+    boxes[0, 0] = [40, 20, 40 + 226, 20 + 257]  # upscales past the pad's height
+    ref_out, ref_luma = jsweep.make_batched_compose(pad, kernel="xla")(
+        *(jnp.asarray(x) for x in (canvases, objs, hw, boxes)))
+    out, luma = make_batched_compose(pad, kernel="xla", device="cpu")(canvases, objs, hw, boxes)
+    _assert_within_one(out.numpy(), ref_out)
+    np.testing.assert_allclose(luma.numpy(), np.asarray(ref_luma), atol=1e-3)
+
+
 @pytest.mark.parametrize("stat", ["luma", "fence"])
 def test_solid_render_step_matches_jax(stat, exact_traced_resample):
     canvases, objs, hw, boxes, pad = _batch("squarespace", 2, 200, 256, 5)
