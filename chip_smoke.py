@@ -7,8 +7,10 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc.
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero:
 
-1. device: nvidia-smi name and power limit, torch/CUDA versions, Pillow;
-   exits 1 at once when torch.cuda.is_available() is False;
+1. device: nvidia-smi name and power limit, the card's uncorrected ECC
+   error counts (printed again after the traceback when a phase fails),
+   torch/CUDA versions, Pillow; exits 1 at once when
+   torch.cuda.is_available() is False;
 2. build: compiles csrc/*.cu with nvcc (timed);
 3. kernel vs plain version: K1 (ops/compose_kernels.fused_compose) against
    fused_compose_reference on the card, bit-exact (tolerance 0), at the
@@ -39,7 +41,21 @@ exits non-zero:
    the port's composite_batch on the card; the packed_out plane's bytes
    equal the u8 output; 4 canvases within 2/255 of PIL's own LANCZOS
    resize + alpha_composite;
-7. one JSON line of kernel results, the nvidia-smi line, and last
+7. ops path (the hybrid batch): for kernel-table rows 7, 8, 9 (the
+   clamped producer), 11 (row-baked), 4 (window-aligned) and 2 (planar),
+   the K4 entry against its plain version on that row's producer outputs,
+   bit-exact, with median CUDA-event times of both; then the row's public
+   function (composite_batch_hybrid_packed's flag, composite_batch_aligned,
+   composite_batch_hybrid) with its launch count reset just before and read
+   just after (must be > 0), within 2/255 of composite_batch (the measured
+   max is printed; 0 is expected). Row 1: composite_batch_pallas_host_tables
+   at the CLI geometry and at 1080p B=64, K1 against its plain version on
+   its arguments, and the output equal to composite_exact and PIL. Row 15:
+   the five stage variants of K4 timed in turn (launch count read around
+   them), each against its plain version, bit-exact;
+8. one JSON line of kernel results (each with its bound: the larger of the
+   bytes it must move over 3.35 TB/s and its operations over 67 TFLOP/s,
+   H100 SXM peaks from NVIDIA's data sheet), the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -51,6 +67,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -63,7 +80,21 @@ RESTORE_SOURCE = "image_transformation_tpu_torch/csrc/restore_windows.cu"
 RESTORE_REPLACES = "image_transformation_tpu/ops/compose_pallas.py:3826"
 BLEND_SOURCE = "image_transformation_tpu_torch/csrc/window_blend.cu"
 BLEND_REPLACES = ("image_transformation_tpu/ops/compose_pallas.py:1210, :1457, :1581, "
-                  ":1907 (kernel-table rows 3, 5, 6, 10)")
+                  ":1907, :1638, :1723, :1817, :2144, :1323 (kernel-table rows 3, 5, 6, "
+                  "10, 7, 8, 9, 11, 4)")
+PLANAR_REPLACES = "image_transformation_tpu/ops/compose_pallas.py:1029 (kernel-table row 2)"
+STAGE_REPLACES = "benchmarks/bisect_resize.py:271 (kernel-table row 15)"
+KERNEL_REPLACES_ROW1 = "image_transformation_tpu/ops/compose_pallas.py:829 (kernel-table row 1)"
+#: H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and float32
+#: operations/s outside the tensor cores, the rate of the scalar int32 and
+#: f32 arithmetic these kernels do
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+#: integer operations of one Pillow alpha-over (csrc/pillow.cuh: 7 multiplies,
+#: 1 divide, ~22 adds and shifts)
+ALPHA_OVER_OPS = 30
+LIBRARY_NOTE = ("library_ms null: no single PyTorch call computes Pillow's fixed-point "
+                "resample or alpha-over, or fills a set of per-placement windows")
 #: (name, clamped, pipelined): the four forms K4 replaces, by kernel-table row
 HYBRID_FORMS = (("row3", False, False), ("row5", False, True),
                 ("row6", True, False), ("row10", True, True))
@@ -77,6 +108,25 @@ def smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+def ecc_line() -> str:
+    """The card's uncorrected ECC error counts (since the driver loaded, and
+    over its life) as nvidia-smi reports them. A device fault in torch's own
+    kernels with the first count risen is the card's memory, not the code."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=ecc.errors.uncorrected.volatile.total,"
+             "ecc.errors.uncorrected.volatile.sram.secded,"
+             "ecc.errors.uncorrected.aggregate.total,ecc.errors.uncorrected.aggregate.sram",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"ECC counts unavailable ({e})"
+    text = (out.stdout or out.stderr).strip().splitlines()
+    return ("uncorrected ECC errors (volatile total, volatile SRAM SEC-DED, "
+            f"aggregate total, aggregate SRAM): {text[0] if text else '?'}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -110,6 +160,7 @@ def phase_device():
         sys.exit(1)
     smi = smi_line()
     print(f"[device] nvidia-smi: {smi}")
+    print(f"[device] {ecc_line()}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} cards {torch.cuda.device_count()} "
           f"kind {torch.cuda.get_device_name(0)}")
@@ -196,12 +247,13 @@ def phase_kernel(smi: str):
         k2 = cuda_ms(lambda: fused_compose(work_k, objects, *tables), k_reps)
         p2 = cuda_ms(lambda: fused_compose_reference(work_p, objects, *tables), p_reps)
         ms, plain_ms = min(k1, k2), min(p1, p2)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             **k1_bound(canvas, objects, *tables))
         print(f"[kernel] {name}: canvas {hw[0]}x{hw[1]} B={batch} "
               f"N={objects.shape[1]} pad {objects.shape[2]}x{objects.shape[3]}: "
               f"K1 == plain (max abs err {err}, {changed} pixels composed); "
               f"K1 {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain {plain_ms:.3f} ms "
-              f"({p1:.3f}, {p2:.3f}) on {smi}")
+              f"({p1:.3f}, {p2:.3f}), {_bound_text(results[name])} on {smi}")
         del canvas, objects, tables, out_k, out_p, work_k, work_p
         torch.cuda.empty_cache()
     return results
@@ -304,6 +356,169 @@ def _in_turns(kernel, plain, k_reps, p_reps):
     return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
 
 
+def _bound_text(r: dict) -> str:
+    return (f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_gbytes']:.4f} GB, "
+            f"{r['bound_gops']:.3f} Gop)")
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` over the
+    HBM rate and ``ops`` over the scalar rate, and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_gbytes=nbytes / 1e9, bound_gops=ops / 1e9, library_ms=None)
+
+
+def placement_traffic(plane_shape, rects):
+    """(covered source pixels, distinct plane pixels written) of placements
+    ``rects`` = [(b, x, y, mh, mw), ...], cut at the plane [B, hp, wp]."""
+    import torch
+
+    B, hp, wp = plane_shape
+    mask = torch.zeros((B, hp, wp), dtype=torch.bool)
+    covered = 0
+    for b, x, y, mh, mw in rects:
+        x0, y0, x1, y1 = max(x, 0), max(y, 0), min(x + mw, wp), min(y + mh, hp)
+        if x1 > x0 and y1 > y0:
+            covered += (y1 - y0) * (x1 - x0)
+            mask[b, y0:y1, x0:x1] = True
+    return covered, int(mask.sum())
+
+
+def blend_bound(plane_shape, src, meta, blends=True) -> dict:
+    """Bound of one K4 launch on ``meta`` as the launch takes it (any
+    columns zeroed), counting what these inputs need: each pixel of a valid
+    placement's live box (the bounding box of its source's nonzero pixels;
+    the producers zero a source outside its resized box) read once (4 B)
+    where it lies on the plane [B, hp, wp]; each plane pixel under a source
+    pixel of alpha > 0 read and written once (8 B; Pillow's alpha-over leaves
+    the plane as it is under alpha 0); the meta; and, where the launch
+    blends, an alpha-over for each source pixel of alpha > 0 on the plane.
+    ``src`` is packed i32 [B, N, mh, mw] or planar u8 [B, N, 4, mh, mw]."""
+    import torch
+
+    B, hp, wp = plane_shape
+    if src.dim() == 5:
+        alpha, live = src[:, :, 3] > 0, (src != 0).any(dim=2)
+    else:
+        alpha, live = ((src >> 24) & 255) != 0, src != 0
+    rows, cols = live.any(-1), live.any(-2)
+    r = torch.arange(rows.shape[-1], device=src.device)
+    c = torch.arange(cols.shape[-1], device=src.device)
+    # first and one-past-last live row and column (an empty source: first > last)
+    extents = torch.stack([torch.where(rows, r, rows.shape[-1]).amin(-1),
+                           torch.where(rows, r + 1, 0).amax(-1),
+                           torch.where(cols, c, cols.shape[-1]).amin(-1),
+                           torch.where(cols, c + 1, 0).amax(-1)], -1).tolist()
+    written = torch.zeros((B, hp, wp), dtype=torch.bool, device=src.device)
+    blended = torch.zeros((), dtype=torch.int64, device=src.device)
+    read = 0
+    for b, rows_b in enumerate(meta.tolist()):
+        for k, (ws_x, ws_y, dx, dy, _, valid) in enumerate(rows_b):
+            r0, r1, c0, c1 = extents[b][k]
+            x, y = ws_x + dx, ws_y + dy
+            x0, y0 = max(x + c0, 0), max(y + r0, 0)
+            x1, y1 = min(x + c1, wp), min(y + r1, hp)
+            if valid <= 0 or x1 <= x0 or y1 <= y0:
+                continue
+            read += (x1 - x0) * (y1 - y0)
+            a = alpha[b, k, y0 - y:y1 - y, x0 - x:x1 - x]
+            written[b, y0:y1, x0:x1] |= a
+            blended += a.sum()
+    return bound(4 * read + 8 * int(written.sum()) + 4 * meta.numel(),
+                 ALPHA_OVER_OPS * int(blended) if blends else 0)
+
+
+def resample_ops(kh, kv, in_h, out_w, resampled) -> int:
+    """Operations of the exact two-pass resample of the placements where
+    ``resampled`` [B, N] is set: each nonzero table entry multiply-adds (2
+    operations) once per channel over the object's in_h source rows (H
+    pass) or the box's out_w output columns (V pass). Table construction is
+    not counted, so this is a lower bound."""
+    nh = (kh != 0).sum(dim=(-1, -2))
+    nv = (kv != 0).sum(dim=(-1, -2))
+    return int((8 * (nh * in_h + nv * out_w) * resampled).sum())
+
+
+def alpha_pixels(plane) -> int:
+    """Pixels of alpha > 0 in a packed i32 [B, h, w] or u8 [B, h, w, 4]
+    plane. Composed onto a transparent plane, they are the pixels some
+    placement changes: Pillow's alpha-over leaves a pixel as it is under
+    alpha 0."""
+    if plane.dim() == 3:
+        return int((((plane >> 24) & 255) != 0).sum())
+    return int((plane[..., 3] > 0).sum())
+
+
+def k1_bound(canvas, objects, kh, kv, boxes, flags) -> dict:
+    """Bound of one K1 launch, counting what these inputs need: the objects,
+    boxes and flags read; of the tables, the rows of each resampled
+    placement's box (its size cut at the envelope); each canvas pixel
+    under a resampled pixel of alpha > 0 read and written (the plain
+    version composed onto a transparent canvas marks them); the resample's
+    operations and an alpha-over per pixel of each live box on the canvas."""
+    import torch
+
+    from image_transformation_tpu_torch.ops.compose_kernels import fused_compose_reference
+
+    bx = boxes.to(torch.int64)
+    out_w = (bx[..., 2] - bx[..., 0]).clamp(min=1, max=kh.shape[2])
+    out_h = (bx[..., 3] - bx[..., 1]).clamp(min=1, max=kv.shape[2])
+    live = (flags & 1) > 0
+    resampled = (live & ((flags & 2) == 0)).to(torch.int64)
+    live_h, sizes = live.tolist(), torch.stack([out_h, out_w], -1).tolist()
+    rects = [(b, x, y, *sizes[b][k]) for b, row in enumerate(bx[..., :2].tolist())
+             for k, (x, y) in enumerate(row) if live_h[b][k]]
+    covered, _ = placement_traffic(canvas.shape[:3], rects)
+    written = alpha_pixels(fused_compose_reference(torch.zeros_like(canvas), objects,
+                                                   kh, kv, boxes, flags))
+    tables = 4 * int(((out_w * kh.shape[3] + out_h * kv.shape[3]) * resampled).sum())
+    nbytes = tables + sum(t.numel() * t.element_size() for t in (objects, boxes, flags))
+    in_h = (kv != 0).any(dim=-2).sum(dim=-1)  # source rows that carry weight
+    ops = resample_ops(kh, kv, in_h, out_w, resampled)
+    return bound(nbytes + 8 * written, ops + ALPHA_OVER_OPS * covered)
+
+
+def k2_bound(plane, objs_p, meta, out_max_hw) -> dict:
+    """Bound of one K2 launch: its objects and meta read, each plane pixel
+    under a resized pixel of alpha > 0 read and written (the plain version
+    composed onto a transparent plane marks them), the resample's operations
+    on the tables its sizes give (built here with the plain f32 table code)
+    and an alpha-over per pixel of each placement on the plane."""
+    import torch
+
+    from image_transformation_tpu_torch.ops.compose_kernels import fused_v3_reference
+    from image_transformation_tpu_torch.ops.resize import build_coeffs_traced
+
+    m = meta.to(torch.int64)
+    ph, pw = objs_p.shape[3], objs_p.shape[4]
+    mh, mw = out_max_hw
+    in_h, in_w = m[..., 6].clamp(0, ph), m[..., 7].clamp(0, pw)
+    out_h, out_w = m[..., 8].clamp(0, mh), m[..., 9].clamp(0, mw)
+    resampled = ((m[..., 5] > 0) & (m[..., 4] == 0)).to(torch.int64)
+    ops = resample_ops(build_coeffs_traced(in_w, out_w, pw, mw),
+                       build_coeffs_traced(in_h, out_h, ph, mh), in_h, out_w, resampled)
+    sizes = torch.stack([out_h, out_w], -1).tolist()
+    rects = [(b, ws_x + dx, ws_y + dy, *sizes[b][k])
+             for b, rows in enumerate(m.tolist())
+             for k, (ws_x, ws_y, dx, dy, _, valid, *_) in enumerate(rows) if valid > 0]
+    covered, _ = placement_traffic(plane.shape, rects)
+    written = alpha_pixels(fused_v3_reference(torch.zeros_like(plane), objs_p, meta,
+                                              out_max_hw))
+    nbytes = objs_p.numel() + 4 * meta.numel() + 8 * written
+    return bound(nbytes, ops + ALPHA_OVER_OPS * covered)
+
+
+def k3_bound(plane, origins, extents) -> dict:
+    """Bound of one K3 launch: each window pixel written once (4 B), the
+    origins read."""
+    rects = [(b, x, y, *extents[k]) for b, row in enumerate(origins.tolist())
+             for k, (x, y) in enumerate(row)]
+    _, written = placement_traffic(plane.shape, rects)
+    return bound(4 * written + 4 * origins.numel(), 0)
+
+
 def phase_batched(smi: str):
     import numpy as np
     import torch
@@ -348,11 +563,12 @@ def phase_batched(smi: str):
     ms, plain_ms, raw = _in_turns(
         lambda: ck.fused_v3(work_k, objs_p, meta, env),
         lambda: ck.fused_v3_reference(work_p, objs_p, meta, env), 5, 2)
-    results["fused_v3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["fused_v3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               **k2_bound(base, objs_p, meta, env))
     print(f"[batched] K2 canvas {H}x{W} (plane {hp}x{wp}) B={B} N={N} shared objects, "
           f"static windows: K2 == plain (max abs err {err}, {changed} pixels changed); "
           f"K2 {ms:.3f} ms ({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms "
-          f"({raw[2]:.3f}, {raw[3]:.3f}) on {smi}")
+          f"({raw[2]:.3f}, {raw[3]:.3f}), {_bound_text(results['fused_v3'])} on {smi}")
     del work_k, work_p
 
     # K3 vs its plain version: restore the windows of that render
@@ -371,11 +587,12 @@ def phase_batched(smi: str):
     ms, plain_ms, raw = _in_turns(
         lambda: ck.restore_windows(work_k, origins, extents, bg),
         lambda: ck.restore_windows_reference(work_p, origins, extents, bg), 10, 3)
-    results["restore_windows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["restore_windows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                      **k3_bound(base, origins, extents))
     print(f"[batched] K3 B={B} N={N} per-object windows {list(static_win)}: K3 == plain "
           f"(max abs err {err}) and leaves the solid plane; K3 {ms:.3f} ms "
           f"({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms "
-          f"({raw[2]:.3f}, {raw[3]:.3f}) on {smi}")
+          f"({raw[2]:.3f}, {raw[3]:.3f}), {_bound_text(results['restore_windows'])} on {smi}")
     del out_k, out_p, got, want, work_k, work_p, base
 
     # a 3-step reuse chain equals fresh renders
@@ -501,6 +718,7 @@ def phase_hybrid(smi: str):
                                       10, 2)
         producer_ms = cuda_ms(produce, 3)
         plane_hw = tuple(canvas_v.shape[1:])
+        bnd = blend_bound(canvas_v.shape, src_v, meta)
         del got, want, work_k, work_p, canvas_v, src_v, meta
 
         # the slice's main path for this form: launch counts around it alone
@@ -516,13 +734,14 @@ def phase_hybrid(smi: str):
             raise AssertionError(f"[hybrid] {name}: != composite_batch, max abs err {diff}")
         total_launches += launches
         outs[name] = out
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, producer_ms=producer_ms)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, producer_ms=producer_ms,
+                             launches=launches, **bnd)
         print(f"[hybrid] {name} (clamped={clamped}, pipelined={pipelined}) plane "
               f"{plane_hw[0]}x{plane_hw[1]}: K4 == plain (max abs err {err}, "
               f"{changed} pixels changed); K4 {ms:.3f} ms "
               f"({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms ({raw[2]:.3f}, "
-              f"{raw[3]:.3f}), producer {producer_ms:.3f} ms; compose == composite_batch, "
-              f"K4 launches {launches} on {smi}")
+              f"{raw[3]:.3f}), producer {producer_ms:.3f} ms, {_bound_text(bnd)}; compose == "
+              f"composite_batch, K4 launches {launches} on {smi}")
         torch.cuda.empty_cache()
 
     packed = ck.composite_batch_hybrid_packed(canvases, objs, hw, boxes, clamped=True,
@@ -538,7 +757,216 @@ def phase_hybrid(smi: str):
         raise AssertionError(f"[hybrid] clamped output vs PIL: max abs err {pil_err} > 2")
     print(f"[hybrid] packed_out bytes == u8 output; clamped output vs PIL on 4 canvases: "
           f"max abs err {pil_err} (limit 2)")
-    return results, total_launches
+    return results, total_launches, ref
+
+
+#: the [ops] phase's K4 rows: (kernel-table row, producer, launcher, the meta
+#: columns the launcher takes as 0, the public call: flags of
+#: composite_batch_hybrid_packed or a function's name)
+OPS_ROWS = (
+    ("row7", "_hybrid_producer_clamped", "_pallas_blend_clamped_batchsrc", (),
+     {"batchsrc": True}),
+    ("row8", "_hybrid_producer_clamped", "_pallas_blend_resident", (), {"resident": True}),
+    ("row9", "_hybrid_producer_clamped", "_pallas_blend_band", (), {"band": True}),
+    ("row11", "_hybrid_producer_rowbaked", "_pallas_blend_rowbaked", (3,), {"rowbaked": True}),
+    ("row4", "_hybrid_producer_aligned", "_pallas_blend_aligned", (2, 3),
+     "composite_batch_aligned"),
+    ("row2", "_hybrid_producer_planar", "_pallas_blend_planar", (), "composite_batch_hybrid"),
+)
+
+
+def stage_split(plane, src, meta, reps: int) -> dict:
+    """Median CUDA-event ms of each stage variant of K4 (row 15) on the
+    packed plane, source and meta, each on its own copy of the plane: the
+    counterpart of benchmarks/bisect_resize.py --anatomy. A variant is its
+    placement (the meta with its STAGE_ZEROED columns zeroed, made here, out
+    of the timed call) under the blend switch: the timed call is the
+    ``full`` or ``no_blend`` launch on that meta, which is the variant's
+    launch without the wrapper's copy of the meta."""
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+    out = {}
+    for variant in ck.STAGE_VARIANTS:
+        work = plane.clone()
+        kmeta = ck._zero_columns(meta, ck.STAGE_ZEROED[variant])
+        switch = "full" if variant in ck.STAGE_BLENDS else "no_blend"
+        out[variant] = cuda_ms(lambda: ck.window_blend_stage(work, src, kmeta, switch), reps)
+    return out
+
+
+def _ops_k4_rows(smi: str, ref) -> dict:
+    import torch
+
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+    _, _, canvases, objs, hw, boxes, env = hybrid_inputs(torch.device("cuda", 0))
+    rows = {}
+    for row, producer_name, launcher_name, zeroed, call in OPS_ROWS:
+        planar = row == "row2"
+        producer = getattr(ck, producer_name)
+        produce = lambda: producer(canvases, objs, hw, boxes, env, "lanczos")  # noqa: E731
+        plane, src, meta = produce()
+        kmeta = ck._zero_columns(meta, zeroed)
+        kernel = ck.window_blend_planar if planar else ck.window_blend
+        plain = ck.window_blend_planar_reference if planar else ck.window_blend_reference
+        got = getattr(ck, launcher_name)(plane.clone(), src, meta)
+        want = plain(plane.clone(), src, kmeta)
+        torch.cuda.synchronize()
+        err = (int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) if planar
+               else _max_abs_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"[ops] {row}: K4 != plain version, max abs err {err}")
+        if torch.equal(got, plane):
+            raise AssertionError(f"[ops] {row}: K4 changed no pixel")
+        work_k, work_p = plane.clone(), plane.clone()
+        ms, plain_ms, raw = _in_turns(lambda: kernel(work_k, src, kmeta),
+                                      lambda: plain(work_p, src, kmeta), 10, 2)
+        producer_ms = cuda_ms(produce, 3)
+        plane_shape, src_hw = (plane.shape[0], *plane.shape[-2:]), tuple(src.shape[-2:])
+        bnd = blend_bound(plane_shape, src, kmeta)
+        del got, want, work_k, work_p, plane, src, meta, kmeta
+
+        # the row's public function: launch counts around it alone
+        ck.reset_launch_counts()
+        if isinstance(call, dict):
+            out = ck.composite_batch_hybrid_packed(canvases, objs, hw, boxes, **call)
+        else:
+            out = getattr(ck, call)(canvases, objs, hw, boxes)
+        torch.cuda.synchronize()
+        key = "window_blend_planar" if planar else "window_blend"
+        launches = ck.LAUNCHES[key]
+        if launches <= 0:
+            raise AssertionError(f"[ops] {row}: {call} launched {key} {launches} times")
+        diff = int((out.to(torch.int32) - ref.to(torch.int32)).abs().max())
+        if diff > 2:
+            raise AssertionError(f"[ops] {row}: {call} vs composite_batch: max abs err {diff} > 2")
+        rows[row] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, producer_ms=producer_ms,
+                         launches=launches, vs_composite_batch=diff, **bnd)
+        print(f"[ops] {row} ({call}) plane {plane_shape[1]}x{plane_shape[2]} source "
+              f"{src_hw[0]}x{src_hw[1]}: {key} == plain "
+              f"(max abs err {err}); kernel {ms:.3f} ms ({raw[0]:.3f}, {raw[1]:.3f}), plain "
+              f"{plain_ms:.3f} ms ({raw[2]:.3f}, {raw[3]:.3f}), producer {producer_ms:.3f} ms, "
+              f"{_bound_text(bnd)}; the public call launched {key} {launches} times, vs "
+              f"composite_batch max abs err {diff} (limit 2) on {smi}")
+        del out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _ops_row1(smi: str) -> dict:
+    """Row 1: composite_batch_pallas_host_tables on K1 at the CLI geometry
+    and at 1080p B=64."""
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.layout.canvas import compute_canvas_size
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.ops.compose import composite_exact
+    from image_transformation_tpu_torch.parallel.sweep import random_downscale_boxes
+
+    device = torch.device("cuda", 0)
+    bundle = load_bundle(ROOT / "data" / "squarespace")
+    arrays = bundle.to_arrays()
+    pad = arrays.objects.shape[1:3]
+    w9, h9 = compute_canvas_size((970, 250), "9:16", verbose=False)
+    out_rows = {}
+    for name, (H, W), B, k_reps, p_reps in (("cli_9x16_b1", (h9, w9), 1, 8, 10),
+                                             ("1080p_b64", BATCH_HW, HYBRID_B, 4, 2)):
+        rng = np.random.default_rng(0)
+        boxes = np.stack([random_downscale_boxes(rng, arrays.obj_hw, (H, W)) for _ in range(B)])
+        obj_hw = np.broadcast_to(arrays.obj_hw, (B, *arrays.obj_hw.shape))
+        canvases = torch.tensor(HYBRID_RGBA, dtype=torch.uint8, device=device)
+        canvases = canvases.expand(B, H, W, 4).contiguous()
+        objs = torch.from_numpy(arrays.objects).to(device)[None].expand(B, *arrays.objects.shape)
+        kh, kv, _, _ = ck.fused_tables_prep(obj_hw, boxes, (H, W), pad, pad)
+        args = ck._pallas_args(canvases, objs, obj_hw, boxes, kh, kv)
+        got = ck.fused_compose(args[0].clone(), *args[1:])
+        want = ck.fused_compose_reference(args[0].clone(), *args[1:])
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"[ops] row1 {name}: K1 != plain version, max abs err {err}")
+        work_k, work_p = args[0].clone(), args[0].clone()
+        ms, plain_ms, raw = _in_turns(lambda: ck.fused_compose(work_k, *args[1:]),
+                                      lambda: ck.fused_compose_reference(work_p, *args[1:]),
+                                      k_reps, p_reps)
+        bnd = k1_bound(*args)
+        del work_k, work_p, want
+
+        ck.reset_launch_counts()
+        out = ck.composite_batch_pallas_host_tables(canvases, objs, obj_hw, boxes)
+        torch.cuda.synchronize()
+        launches = ck.LAUNCHES["fused_compose"]
+        if launches <= 0:
+            raise AssertionError(f"[ops] row1 {name}: K1 launched {launches} times")
+        if not torch.equal(out, got):
+            raise AssertionError(f"[ops] row1 {name}: the public call != K1 on its arguments")
+        for b in range(B):
+            exact = composite_exact(canvases[b], objs[b], obj_hw[b], boxes[b], pad)
+            pil = np.asarray(_pil_canvas(bundle, (H, W), HYBRID_RGBA, boxes[b]))
+            if not torch.equal(out[b], exact):
+                raise AssertionError(f"[ops] row1 {name}: canvas {b} != composite_exact")
+            if not np.array_equal(out[b].cpu().numpy(), pil):
+                raise AssertionError(f"[ops] row1 {name}: canvas {b} != PIL")
+        out_rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, launches=launches, **bnd)
+        print(f"[ops] row1 composite_batch_pallas_host_tables {name} ({H}x{W} B={B}): K1 == "
+              f"plain (max abs err {err}); K1 {ms:.3f} ms ({raw[0]:.3f}, {raw[1]:.3f}), plain "
+              f"{plain_ms:.3f} ms ({raw[2]:.3f}, {raw[3]:.3f}), {_bound_text(bnd)}; K1 "
+              f"launches {launches}; == composite_exact == PIL on all {B} canvases on {smi}")
+        del args, got, out
+        torch.cuda.empty_cache()
+    return out_rows
+
+
+def _ops_row15(smi: str) -> dict:
+    """Row 15: the stage variants of K4 on row 6's inputs."""
+    import torch
+
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+    _, _, canvases, objs, hw, boxes, env = hybrid_inputs(torch.device("cuda", 0))
+    plane, src, meta = ck._hybrid_producer_clamped(canvases, objs, hw, boxes, env, "lanczos")
+    ck.reset_launch_counts()
+    split = stage_split(plane, src, meta, 10)
+    torch.cuda.synchronize()
+    launches = ck.LAUNCHES["window_blend_stage"]
+    if launches <= 0:
+        raise AssertionError(f"[ops] row15: the stage split launched {launches} times")
+    variants = {}
+    for variant in ck.STAGE_VARIANTS:
+        got = ck.window_blend_stage(plane.clone(), src, meta, variant)
+        want = ck.window_blend_stage_reference(plane.clone(), src, meta, variant)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"[ops] row15 {variant}: != plain version, max abs err {err}")
+        work = plane.clone()
+        plain_ms = cuda_ms(lambda: ck.window_blend_stage_reference(work, src, meta, variant), 2)
+        bnd = blend_bound(plane.shape, src, ck._zero_columns(meta, ck.STAGE_ZEROED[variant]),
+                          blends=variant in ck.STAGE_BLENDS)
+        variants[variant] = dict(max_abs_err=err, ms=split[variant], plain_ms=plain_ms, **bnd)
+        print(f"[ops] row15 {variant}: == plain (max abs err {err}); kernel "
+              f"{split[variant]:.3f} ms ({100 * split[variant] / split['full']:.1f}% of full), "
+              f"plain {plain_ms:.3f} ms, {_bound_text(bnd)} on {smi}")
+    print(f"[ops] row15 stage split launched window_blend_stage {launches} times")
+    return dict(launches=launches, variants=variants)
+
+
+def phase_ops(smi: str, ref):
+    """The rest of the ops compose API: rows 7, 8, 9, 11, 4, 2 on K4, row 1
+    on K1 and row 15's stage variants."""
+    return _ops_k4_rows(smi, ref), _ops_row1(smi), _ops_row15(smi)
+
+
+_CONTRACT = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
+def _entry(name: str, source: str, replaces: str, launches: int, main: dict, **extra):
+    """One kernel's line entry: the contract's keys (times and bound from
+    ``main``, the geometry its ``ms`` is measured at) and ``extra``."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, **{k: main[k] for k in _CONTRACT}, **extra}
 
 
 def main_smoke() -> int:
@@ -549,41 +977,34 @@ def main_smoke() -> int:
     kernel = phase_kernel(smi)
     launches = phase_main_path()
     batched, batched_launches, _ = phase_batched(smi)
-    hybrid, hybrid_launches = phase_hybrid(smi)
+    hybrid, hybrid_launches, ref = phase_hybrid(smi)
+    ops_rows, row1, row15 = phase_ops(smi, ref)
+    del ref
     cli, serve = kernel["cli_9x16_b1"], kernel["serve_1080p_b64"]
-    print(json.dumps({"kernels": [{
-        "name": "fused_compose",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches["fused_compose"],
-        "max_abs_err": max(cli["max_abs_err"], serve["max_abs_err"]),
-        "ms": cli["ms"],
-        "plain_ms": cli["plain_ms"],
-        "ms_1080p_b64": serve["ms"],
-        "plain_ms_1080p_b64": serve["plain_ms"],
-    }] + [{
-        "name": name,
-        "route": "cuda",
-        "source": source,
-        "replaces": replaces,
-        "launches": batched_launches[name],
-        **batched[name],
-    } for name, source, replaces in (
-        ("fused_v3", V3_SOURCE, V3_REPLACES),
-        ("restore_windows", RESTORE_SOURCE, RESTORE_REPLACES),
-    )] + [{
-        "name": "window_blend",
-        "route": "cuda",
-        "source": BLEND_SOURCE,
-        "replaces": BLEND_REPLACES,
-        "launches": hybrid_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in hybrid.values()),
-        # the default clamped form (row 6); every form's times follow
-        "ms": hybrid["row6"]["ms"],
-        "plain_ms": hybrid["row6"]["plain_ms"],
-        "forms": hybrid,
-    }]}))
+    packed = {**hybrid, **{k: v for k, v in ops_rows.items() if k != "row2"}}
+    print(f"[kernels] {LIBRARY_NOTE}")
+    print(json.dumps({"kernels": [
+        _entry("fused_compose", KERNEL_SOURCE,
+               f"{KERNEL_REPLACES} (kernel-table row 12), {KERNEL_REPLACES_ROW1}",
+               launches["fused_compose"] + sum(r["launches"] for r in row1.values()), cli,
+               max_abs_err=max(r["max_abs_err"] for r in (cli, serve, *row1.values())),
+               geometries={"row12_cli_9x16_b1": cli, "row12_1080p_b64": serve,
+                           **{f"row1_{k}": v for k, v in row1.items()}}),
+        *(_entry(name, source, replaces, batched_launches[name], batched[name])
+          for name, source, replaces in (("fused_v3", V3_SOURCE, V3_REPLACES),
+                                         ("restore_windows", RESTORE_SOURCE, RESTORE_REPLACES))),
+        # the default clamped form (row 6); every row's numbers follow
+        _entry("window_blend", BLEND_SOURCE, BLEND_REPLACES,
+               hybrid_launches + sum(ops_rows[k]["launches"] for k in packed if k in ops_rows),
+               hybrid["row6"],
+               max_abs_err=max(r["max_abs_err"] for r in packed.values()), rows=packed),
+        _entry("window_blend_planar", BLEND_SOURCE, PLANAR_REPLACES,
+               ops_rows["row2"]["launches"], ops_rows["row2"]),
+        _entry("window_blend_stage", BLEND_SOURCE, STAGE_REPLACES, row15["launches"],
+               row15["variants"]["full"],
+               max_abs_err=max(r["max_abs_err"] for r in row15["variants"].values()),
+               variants=row15["variants"]),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -594,4 +1015,9 @@ def main_smoke() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main_smoke())
+    try:
+        sys.exit(main_smoke())
+    except Exception:
+        traceback.print_exc()
+        print(f"[device] at the failure: {ecc_line()}", file=sys.stderr)
+        sys.exit(1)

@@ -186,6 +186,38 @@ def composite_batch(canvases, objs, obj_hw, boxes,
     ])
 
 
+def composite_canvas_tables(
+    canvas_u8: torch.Tensor,
+    objs_u8: torch.Tensor,
+    boxes,
+    kh_i32,
+    kv_i32,
+    same_size,
+    wide: bool = False,
+) -> torch.Tensor:
+    """Compose with precomputed per-object coefficient tables (port of
+    ops/compose.py:193-219), in list order.
+
+    canvas_u8 [H, W, 4]; objs_u8 [N, Hm, Wm, 4]; boxes [N, 4]; kh_i32
+    [N, Wout_max, Wm]; kv_i32 [N, Hout_max, Hm]; same_size [N] (Pillow's
+    identity shortcut). With host-built tables the output is bit-exact vs
+    PIL. ``wide`` selects the TPU's chunked accumulation and is ignored: the
+    float64 resample is exact at any tap count. Returns a new uint8
+    [H, W, 4] canvas on the canvas's device."""
+    del wide
+    h_c, w_c = canvas_u8.shape[:2]
+    dev = canvas_u8.device
+    kh = torch.as_tensor(kh_i32, device=dev)
+    kv = torch.as_tensor(kv_i32, device=dev)
+    origins = torch.as_tensor(boxes).reshape(-1, 4)[:, :2].tolist()
+    same = torch.as_tensor(same_size).reshape(-1).tolist()
+    work = _grow_canvas(canvas_u8, (kv.shape[1], kh.shape[1]))
+    for k in range(objs_u8.shape[0]):
+        resized = resize_with_tables(objs_u8[k].to(dev), kh[k], kv[k], bool(same[k]))
+        _blend_window(work, resized, origins[k][0], origins[k][1])
+    return work[:h_c, :w_c].contiguous()
+
+
 def composite_exact(
     canvas_u8: torch.Tensor,
     objs_u8: torch.Tensor,

@@ -27,18 +27,25 @@ of the previous render's windows.
   :func:`render_solid_fused_v3_reuse_program`,
   :func:`render_gradient_fused_v3_program`.
 
-K4, the two-program hybrid (``csrc/window_blend.cu``; JAX :1177-1207,
-:1210-1261, :1457-2084, :2283-2453): a plain-torch producer resizes every
-object into packed sources ``[B, N, mh_a, mw_a]`` and pads the canvases into
-the packed plane; K4 alpha-overs the sources onto the plane through their
-windows.
+K4, the two-program hybrid (``csrc/window_blend.cu``; JAX :1029-1207,
+:1210-2084, :2144-2453): a plain-torch producer resizes every object into
+sources ``[B, N, mh, mw]`` and pads the canvases into the plane; K4
+alpha-overs the sources onto the plane through their windows.
 
 - the producers :func:`_hybrid_producer` (unclamped, the plane padded by a
-  window) and :func:`_hybrid_producer_clamped`;
-- :func:`window_blend` / :func:`window_blend_reference`, behind the four
-  named counterparts of the TPU launchers (rows 3, 5, 6 and 10 of the
-  kernel table);
-- :func:`composite_batch_hybrid_packed`.
+  window), :func:`_hybrid_producer_clamped`, :func:`_hybrid_producer_rowbaked`
+  (dy baked into the sources), :func:`_hybrid_producer_aligned` (dy and dx
+  baked) and :func:`_hybrid_producer_planar` (planar u8);
+- :func:`window_blend` / :func:`window_blend_reference` (packed int32),
+  behind the named counterparts of the TPU launchers of rows 3-11;
+  :func:`window_blend_planar` / :func:`window_blend_planar_reference` (row
+  2); :func:`window_blend_stage` / :func:`window_blend_stage_reference`, the
+  timing-only stage variants of row 15;
+- :func:`composite_batch_hybrid_packed` (every flag),
+  :func:`composite_batch_aligned`, :func:`composite_batch_hybrid`.
+
+K1 also carries the gen-1 planar compose (row 1): :func:`_pallas_compose_planar`,
+:func:`composite_batch_pallas` and :func:`composite_batch_pallas_host_tables`.
 
 The packed plane is a signed int32 ``[B, hp, wp]`` whose little-endian bytes
 are RGBA; the kernels update it in place where JAX donates it.
@@ -53,12 +60,14 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from .compose import _blend_window, alpha_over_u8
 from .resize import (
     build_coeffs_host,
     build_coeffs_traced,
     premultiply_rgba,
     resample_fixed,
+    resize_f32_shifted,
     resize_u8,
     resize_with_tables,
     unpremultiply_rgba,
@@ -68,7 +77,8 @@ FLAG_LIVE = 1
 FLAG_IDENTITY = 2
 
 #: launches since the last reset (one per launching wrapper call on CUDA)
-LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "restore_windows": 0, "window_blend": 0}
+LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "restore_windows": 0, "window_blend": 0,
+            "window_blend_planar": 0, "window_blend_stage": 0}
 
 _MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z, which carries B*N
 _MAX_GRID_X = (1 << 31) - 1  # CUDA's limit on gridDim.x
@@ -85,8 +95,9 @@ def fused_tables_prep(
     canvas_hw: Tuple[int, int],
     obj_pad_hw: Tuple[int, int],
     out_max_hw: Tuple[int, int],
+    method: str = "lanczos",
 ):
-    """Host side of the exact fused compose (LANCZOS tables).
+    """Host side of the exact fused compose (Pillow tables of ``method``).
 
     obj_hw [B, N, 2] (h, w) and boxes [B, N, 4] (x1, y1, x2, y2) are host
     ints. Returns numpy (kh i32 [B, N, mw, pw], kv i32 [B, N, mh, ph],
@@ -109,8 +120,8 @@ def fused_tables_prep(
             x1, y1, x2, y2 = (int(v) for v in boxes[b, k])
             w_t, h_t = max(1, x2 - x1), max(1, y2 - y1)
             oh, ow = int(obj_hw[b, k, 0]), int(obj_hw[b, k, 1])
-            kh[b, k] = build_coeffs_host(ow, w_t, pw, mw)
-            kv[b, k] = build_coeffs_host(oh, h_t, ph, mh)
+            kh[b, k] = build_coeffs_host(ow, w_t, pw, mw, method)
+            kv[b, k] = build_coeffs_host(oh, h_t, ph, mh, method)
             drop = x1 < 0 or y1 < 0 or x1 >= w_c or y1 >= h_c
             flags[b, k] = (0 if drop else FLAG_LIVE) | (
                 FLAG_IDENTITY if (w_t == ow and h_t == oh) else 0
@@ -185,6 +196,8 @@ _ARGTYPES = {
     "fused_v3_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     "restore_windows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "window_blend_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "window_blend_planar_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "window_blend_stage_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 
 
@@ -810,6 +823,58 @@ def _alpha_over_packed(dst_v: torch.Tensor, src_v: torch.Tensor) -> torch.Tensor
     return _pack_rgba_u32(*out.unbind(-1))
 
 
+def _clamped_pad_hw(canvas_hw: Tuple[int, int],
+                    window_hw: Tuple[int, int]) -> Tuple[int, int]:
+    """Padded plane extent of the CLAMPED window blends: (8, 128) multiples
+    and at least one window; origins cap at ``(hp - MH, wp - MW)``."""
+    return (max(_round_up(canvas_hw[0], 8), window_hw[0]),
+            max(_round_up(canvas_hw[1], 128), window_hw[1]))
+
+
+def _blend_envelope(objs: torch.Tensor, out_max_hw) -> Tuple[int, int]:
+    """(mh_a, mw_a): ``out_max_hw`` (default: the NHWC objects' pad) rounded
+    up to (8, 128) multiples."""
+    if out_max_hw is None:
+        out_max_hw = (objs.shape[2], objs.shape[3])
+    return _round_up(out_max_hw[0], 8), _round_up(out_max_hw[1], 128)
+
+
+def _packed_plane(canvases: torch.Tensor, pad_hw: Tuple[int, int]) -> torch.Tensor:
+    """A new packed plane [B, hp, wp] holding the u8 canvases [B, H, W, 4]
+    at its top-left, zero elsewhere."""
+    B, h_c, w_c = canvases.shape[:3]
+    plane = torch.zeros((B, *pad_hw), dtype=torch.int32, device=canvases.device)
+    plane[:, :h_c, :w_c] = canvases.contiguous().view(torch.int32)[..., 0]
+    return plane
+
+
+def _box_sizes(obj_hw, boxes, device):
+    """(in_h, in_w, out_h, out_w) int64 [B, N] of each placement: its object's
+    size and its box's, floored at 1 px."""
+    boxes = _long(boxes, device)
+    obj_hw = _long(obj_hw, device)
+    w = (boxes[..., 2] - boxes[..., 0]).clamp(min=1)
+    h = (boxes[..., 3] - boxes[..., 1]).clamp(min=1)
+    return obj_hw[..., 0], obj_hw[..., 1], h, w
+
+
+def _shifted_copy(objs: torch.Tensor, origin_yx, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Pillow's identity copy at per-placement origins: u8 [B, N, out_h,
+    out_w, 4] with ``out[b, k, r, c] = objs[b, k, r - y, c - x]`` where that
+    lies inside the object tensor, 0 elsewhere. ``objs`` [Bo, N, h, w, 4]
+    (Bo == 1 broadcasts); ``origin_yx`` = (y, x), int64 [B, N]."""
+    h, w = objs.shape[2], objs.shape[3]
+    dev = objs.device
+    y, x = origin_yx
+    objz = torch.nn.functional.pad(objs, (0, 0, 0, 1, 0, 1))  # zero row h, zero column w
+    r = torch.arange(out_hw[0], device=dev) - y[..., None]
+    c = torch.arange(out_hw[1], device=dev) - x[..., None]
+    r = torch.where((r >= 0) & (r < h), r, h)
+    c = torch.where((c >= 0) & (c < w), c, w)
+    rows = torch.take_along_dim(objz, r[..., :, None, None], dim=2)
+    return torch.take_along_dim(rows, c[..., None, :, None], dim=3)
+
+
 def _hybrid_producer_impl(canvases, objs, obj_hw, boxes, out_max_hw, method, clamp):
     """Resize every object and build the packed plane and meta for K4 (port
     of JAX :2283), on the canvases' device with no host round trip.
@@ -820,24 +885,19 @@ def _hybrid_producer_impl(canvases, objs, obj_hw, boxes, out_max_hw, method, cla
     origins uncapped. Returns (canvas_v i32 [B, hp, wp], a new plane holding
     the canvases; src_v i32 [B, N, mh_a, mw_a], each object resized to its
     box and cut at the envelope; meta i32 [B, N, 6])."""
-    B, h_c, w_c = canvases.shape[:3]
+    h_c, w_c = canvases.shape[1:3]
     mh_a, mw_a = out_max_hw
     MH, MW = window_extents((mh_a, mw_a))
     if clamp:
-        hp, wp = max(_round_up(h_c, 8), MH), max(_round_up(w_c, 128), MW)
+        hp, wp = _clamped_pad_hw((h_c, w_c), (MH, MW))
     else:
         hp, wp = _legacy_canvas_pad_hw((h_c, w_c), (MH, MW))
-    dev = canvases.device
-    boxes = _long(boxes, dev)
-    obj_hw = _long(obj_hw, dev)
-    w = (boxes[..., 2] - boxes[..., 0]).clamp(min=1)
-    h = (boxes[..., 3] - boxes[..., 1]).clamp(min=1)
-    resized = resize_u8(objs, (obj_hw[..., 0], obj_hw[..., 1]), (h, w), (mh_a, mw_a), method)
+    boxes = _long(boxes, canvases.device)
+    in_h, in_w, h, w = _box_sizes(obj_hw, boxes, canvases.device)
+    resized = resize_u8(objs, (in_h, in_w), (h, w), (mh_a, mw_a), method)
     src_v = resized.view(torch.int32)[..., 0]
     meta = _window_meta6(boxes, (h_c, w_c), origin_cap=(hp - MH, wp - MW) if clamp else None)
-    canvas_v = torch.zeros((B, hp, wp), dtype=torch.int32, device=dev)
-    canvas_v[:, :h_c, :w_c] = canvases.contiguous().view(torch.int32)[..., 0]
-    return canvas_v, src_v, meta
+    return _packed_plane(canvases, (hp, wp)), src_v, meta
 
 
 def _hybrid_producer_clamped(canvases, objs, obj_hw, boxes, out_max_hw, method):
@@ -850,19 +910,109 @@ def _hybrid_producer(canvases, objs, obj_hw, boxes, out_max_hw, method):
                                  clamp=False)
 
 
-def _check_blend_args(plane, src, meta) -> None:
-    """Raise on anything K4 does not take: device, dtype, shape, layout."""
-    for name, t in dict(plane=plane, src=src, meta=meta).items():
-        if not torch.is_tensor(t) or t.dtype != torch.int32:
-            raise TypeError(f"{name} must be an int32 torch.Tensor")
+def window_extents_rowbaked(src_hw: Tuple[int, int]) -> Tuple[int, int]:
+    """Window of a row-baked source [MH, mw_a]: it already spans the window
+    height (JAX :2194)."""
+    mh_src, mw_a = src_hw
+    return mh_src, _round_up(mw_a + 128, 128)
+
+
+def _hybrid_producer_rowbaked(canvases, objs, obj_hw, boxes, out_max_hw, method):
+    """Producer of row 11 (port of JAX :2236): the clamped plane and meta,
+    and each object resampled directly to its row offset ``dy`` inside its
+    window (``dy`` baked into the V tables), so the sources are
+    [B, N, MH, mw_a]. Pillow's identity copy is row-shifted the same way,
+    as JAX slices it out of a top-padded buffer (which never clamps)."""
+    h_c, w_c = canvases.shape[1:3]
+    mh_a, mw_a = out_max_hw
+    MH, MW = window_extents((mh_a, mw_a))
+    hp, wp = _clamped_pad_hw((h_c, w_c), (MH, MW))
+    dev = canvases.device
+    boxes = _long(boxes, dev)
+    meta = _window_meta6(boxes, (h_c, w_c), origin_cap=(hp - MH, wp - MW))
+    dy = meta[..., 3].to(torch.int64)
+    zero = torch.zeros_like(dy)
+    in_h, in_w, h, w = _box_sizes(obj_hw, boxes, dev)
+    resized = resize_f32_shifted(objs, (in_h, in_w), (h, w), (dy, zero), (MH, mw_a), method)
+    crop = objs[:, :, :min(objs.shape[2], MH), :min(objs.shape[3], mw_a)]
+    ident = _shifted_copy(crop, (dy, zero), (MH, mw_a))
+    same = (w == in_w) & (h == in_h)
+    src = torch.where(same[..., None, None, None], ident, resized.to(torch.uint8))
+    return _packed_plane(canvases, (hp, wp)), src.contiguous().view(torch.int32)[..., 0], meta
+
+
+def _hybrid_producer_aligned(canvases, objs, obj_hw, boxes, out_max_hw, method):
+    """Producer of row 4 (port of JAX :1396): the legacy plane (padded by a
+    full window), uncapped meta, and each object resampled directly to its
+    window position ``(dy, dx)`` (both baked into the tables), so the sources
+    are whole windows [B, N, MH, MW].
+
+    Pillow's identity copy is JAX's ``dynamic_update_slice`` of the padded
+    object into the window, which clamps its start to ``(MH - ph, MW - pw)``:
+    with the default envelope the clamp never moves it (``MH >= ph + 8``,
+    ``MW >= pw + 128``); with a smaller ``out_max_hw`` it shifts the copy up
+    or left, and the port does the same. An object pad larger than the
+    window raises, as JAX does."""
+    h_c, w_c = canvases.shape[1:3]
+    ph, pw = objs.shape[2], objs.shape[3]
+    MH, MW = window_extents(out_max_hw)
+    if ph > MH or pw > MW:
+        raise ValueError(f"object pad {(ph, pw)} exceeds the window {(MH, MW)}: the "
+                         "identity copy does not fit (JAX's dynamic_update_slice raises)")
+    dev = canvases.device
+    boxes = _long(boxes, dev)
+    meta = _window_meta6(boxes, (h_c, w_c))
+    dx, dy = meta[..., 2].to(torch.int64), meta[..., 3].to(torch.int64)
+    in_h, in_w, h, w = _box_sizes(obj_hw, boxes, dev)
+    resized = resize_f32_shifted(objs, (in_h, in_w), (h, w), (dy, dx), (MH, MW), method)
+    ident = _shifted_copy(objs, (dy.clamp(max=MH - ph), dx.clamp(max=MW - pw)), (MH, MW))
+    same = (w == in_w) & (h == in_h)
+    src = torch.where(same[..., None, None, None], ident, resized.to(torch.uint8))
+    plane = _packed_plane(canvases, _legacy_canvas_pad_hw((h_c, w_c), (MH, MW)))
+    return plane, src.contiguous().view(torch.int32)[..., 0], meta
+
+
+def _hybrid_producer_planar(canvases, objs, obj_hw, boxes, out_max_hw, method):
+    """Producer of row 2 (``composite_batch_hybrid``, JAX :1150-1172): the
+    canvases as a planar u8 plane [B, 4, hp, wp] padded by a full window,
+    each object resized to its box as planar u8 [B, N, 4, mh_a, mw_a], and
+    the uncapped meta."""
+    B, h_c, w_c = canvases.shape[:3]
+    MH, MW = window_extents(out_max_hw)
+    dev = canvases.device
+    boxes = _long(boxes, dev)
+    in_h, in_w, h, w = _box_sizes(obj_hw, boxes, dev)
+    resized = resize_u8(objs, (in_h, in_w), (h, w), out_max_hw, method)
+    src_p = resized.permute(0, 1, 4, 2, 3).contiguous()
+    meta = _window_meta6(boxes, (h_c, w_c))
+    hp, wp = _legacy_canvas_pad_hw((h_c, w_c), (MH, MW))
+    canvas_p = torch.zeros((B, 4, hp, wp), dtype=torch.uint8, device=dev)
+    canvas_p[:, :, :h_c, :w_c] = canvases.permute(0, 3, 1, 2)
+    return canvas_p, src_p, meta
+
+
+def _check_blend_args(plane, src, meta, planar: bool = False) -> None:
+    """Raise on anything K4 does not take: device, dtype, shape, layout.
+    Packed: plane i32 [B, hp, wp], src i32 [B, N, mh, mw]; planar: plane u8
+    [B, 4, hp, wp], src u8 [B, N, 4, mh, mw]; meta i32 [B, N, 6]."""
+    px = torch.uint8 if planar else torch.int32
+    for name, t, dtype in (("plane", plane, px), ("src", src, px), ("meta", meta, torch.int32)):
+        if not torch.is_tensor(t) or t.dtype != dtype:
+            raise TypeError(f"{name} must be a {dtype} torch.Tensor")
         if t.device != plane.device:
             raise ValueError(f"{name} is on {t.device}, plane on {plane.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if plane.dim() != 3:
-        raise ValueError(f"plane must be [B, hp, wp], got {tuple(plane.shape)}")
-    if src.dim() != 4 or src.shape[0] != plane.shape[0]:
-        raise ValueError(f"src must be [B, N, mh, mw], got {tuple(src.shape)}")
+    if planar:
+        if plane.dim() != 4 or plane.shape[1] != 4:
+            raise ValueError(f"plane must be [B, 4, hp, wp], got {tuple(plane.shape)}")
+        if src.dim() != 5 or src.shape[0] != plane.shape[0] or src.shape[2] != 4:
+            raise ValueError(f"src must be [B, N, 4, mh, mw], got {tuple(src.shape)}")
+    else:
+        if plane.dim() != 3:
+            raise ValueError(f"plane must be [B, hp, wp], got {tuple(plane.shape)}")
+        if src.dim() != 4 or src.shape[0] != plane.shape[0]:
+            raise ValueError(f"src must be [B, N, mh, mw], got {tuple(src.shape)}")
     if tuple(meta.shape) != (*src.shape[:2], 6):
         raise ValueError(f"meta must be [B, N, 6], got {tuple(meta.shape)}")
 
@@ -890,6 +1040,27 @@ def window_blend_reference(plane: torch.Tensor, src: torch.Tensor,
     return plane
 
 
+def _blend_launch(name: str, plane, src, meta, *extra) -> None:
+    """Launch the K4 entry ``<name>_launch`` on the current stream over the
+    checked arguments, raise if the launch fails, and count it."""
+    B, N = src.shape[0], src.shape[1]
+    hp, wp = plane.shape[-2:]
+    mh, mw = src.shape[-2:]
+    if min(B, N, hp, wp, mh, mw) == 0:
+        return
+    if B * N > _MAX_GRID_X or max(-(-mh // 8), -(-mw // 32)) > _MAX_GRID_Z:
+        raise ValueError(f"B*N = {B * N} or the source extent {(mh, mw)} exceeds "
+                         "the kernel's grid limits")
+    fn = _kernel_entry(f"{name}_launch")
+    with torch.cuda.device(plane.device):
+        stream = torch.cuda.current_stream(plane.device).cuda_stream
+        rc = fn(plane.data_ptr(), src.data_ptr(), meta.data_ptr(),
+                B, N, hp, wp, mh, mw, *extra, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
 def window_blend(plane: torch.Tensor, src: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
     """Alpha-over every valid object's packed source onto the packed plane
     through its window, in list order. Updates ``plane`` IN PLACE and
@@ -908,33 +1079,109 @@ def window_blend(plane: torch.Tensor, src: torch.Tensor, meta: torch.Tensor) -> 
     _check_blend_args(plane, src, meta)
     if plane.device.type != "cuda":
         raise ValueError(f"window_blend runs on cuda or cpu, not {plane.device}")
-    B, hp, wp = plane.shape
-    N, mh, mw = src.shape[1], src.shape[2], src.shape[3]
-    if min(B, N, hp, wp, mh, mw) == 0:
+    _blend_launch("window_blend", plane, src, meta)
+    return plane
+
+
+def window_blend_planar_reference(plane: torch.Tensor, src: torch.Tensor,
+                                  meta: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4's planar entry: :func:`window_blend_reference`
+    on the planes packed. Updates ``plane`` in place and returns it."""
+    _check_blend_args(plane, src, meta, planar=True)
+    packed = plane.permute(0, 2, 3, 1).contiguous().view(torch.int32)[..., 0]
+    src_v = src.permute(0, 1, 3, 4, 2).contiguous().view(torch.int32)[..., 0]
+    window_blend_reference(packed, src_v, meta)
+    plane.copy_(packed_to_u8(packed).permute(0, 3, 1, 2))
+    return plane
+
+
+def window_blend_planar(plane: torch.Tensor, src: torch.Tensor,
+                        meta: torch.Tensor) -> torch.Tensor:
+    """:func:`window_blend` on planar u8 pixels: plane [B, 4, hp, wp], src
+    [B, N, 4, mh, mw] (zero outside each live region), meta i32 [B, N, 6].
+    Updates ``plane`` IN PLACE and returns it. On a CUDA device this
+    launches K4's planar entry (``window_blend_planar_launch``); on the CPU
+    it runs :func:`window_blend_planar_reference`."""
+    if plane.device.type == "cpu":
+        return window_blend_planar_reference(plane, src, meta)
+    _check_blend_args(plane, src, meta, planar=True)
+    if plane.device.type != "cuda":
+        raise ValueError(f"window_blend_planar runs on cuda or cpu, not {plane.device}")
+    _blend_launch("window_blend_planar", plane, src, meta)
+    return plane
+
+
+#: the stage variants of benchmarks/bisect_resize.py:353-359
+STAGE_VARIANTS = ("full", "no_roll", "no_shift", "no_blend", "dma_only")
+#: the meta columns each variant takes as 0, its placement: no_roll at
+#: column ws_x (dx = 0), no_shift at row ws_y (dy = 0), dma_only both
+STAGE_ZEROED = {"full": (), "no_roll": (2,), "no_shift": (3,), "no_blend": (),
+                "dma_only": (2, 3)}
+#: the variants that alpha-over; the others write every window back unchanged
+STAGE_BLENDS = ("full", "no_roll", "no_shift")
+
+
+def _zero_columns(meta: torch.Tensor, cols: Sequence[int]) -> torch.Tensor:
+    """The meta with columns ``cols`` set to 0 (a copy; ``meta`` itself when
+    there are none)."""
+    if not cols:
+        return meta
+    out = meta.clone()
+    out[..., list(cols)] = 0
+    return out
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in STAGE_VARIANTS:
+        raise ValueError(f"variant must be one of {STAGE_VARIANTS}, got {variant!r}")
+
+
+def window_blend_stage_reference(plane: torch.Tensor, src: torch.Tensor,
+                                 meta: torch.Tensor, variant: str) -> torch.Tensor:
+    """Plain PyTorch version of the stage variants: ``full``, ``no_roll``
+    and ``no_shift`` are :func:`window_blend_reference` on the meta with
+    dx, or dy, taken as 0; ``no_blend`` and ``dma_only`` write every window
+    back unchanged, so the plane is returned as it is."""
+    _check_blend_args(plane, src, meta)
+    _check_variant(variant)
+    if variant not in STAGE_BLENDS:
         return plane
-    if B * N > _MAX_GRID_X or max(-(-mh // 8), -(-mw // 32)) > _MAX_GRID_Z:
-        raise ValueError(f"B*N = {B * N} or the source extent {(mh, mw)} exceeds "
-                         "the kernel's grid limits")
-    fn = _kernel_entry("window_blend_launch")
-    with torch.cuda.device(plane.device):
-        stream = torch.cuda.current_stream(plane.device).cuda_stream
-        rc = fn(plane.data_ptr(), src.data_ptr(), meta.data_ptr(),
-                B, N, hp, wp, mh, mw, stream)
-    if rc != 0:
-        raise RuntimeError(f"window_blend: kernel launch failed with CUDA error {rc}")
-    LAUNCHES["window_blend"] += 1
+    return window_blend_reference(plane, src, _zero_columns(meta, STAGE_ZEROED[variant]))
+
+
+def window_blend_stage(plane: torch.Tensor, src: torch.Tensor, meta: torch.Tensor,
+                       variant: str) -> torch.Tensor:
+    """One timing-only stage variant of K4 (the counterpart of
+    benchmarks/bisect_resize.py ``make_variant``, row 15): ``variant`` in
+    :data:`STAGE_VARIANTS`. Arguments and in-place update as
+    :func:`window_blend`. On a CUDA device this launches
+    ``window_blend_stage_launch`` on the meta with the variant's
+    :data:`STAGE_ZEROED` columns zeroed (a copy), blending or not as
+    :data:`STAGE_BLENDS` says; it moves K4's bytes in every variant. On the
+    CPU it runs :func:`window_blend_stage_reference`."""
+    if plane.device.type == "cpu":
+        return window_blend_stage_reference(plane, src, meta, variant)
+    _check_blend_args(plane, src, meta)
+    _check_variant(variant)
+    if plane.device.type != "cuda":
+        raise ValueError(f"window_blend_stage runs on cuda or cpu, not {plane.device}")
+    _blend_launch("window_blend_stage", plane, src, _zero_columns(meta, STAGE_ZEROED[variant]),
+                  int(variant in STAGE_BLENDS), 0)  # keep_mask 0
     return plane
 
 
 def _pallas_blend_packed(canvas_v: torch.Tensor, src_v: torch.Tensor,
                          meta: torch.Tensor, interpret: bool = False) -> torch.Tensor:
-    """Counterpart of the four packed window-blend launchers: rows 3
+    """Counterpart of the packed window-blend launchers: rows 3
     (``_pallas_blend_packed`` :2332), 5 (``_pallas_blend_packed_pipelined``
-    :1516), 6 (``_pallas_blend_packed_clamped`` :1999) and 10
+    :1516), 6 (``_pallas_blend_packed_clamped`` :1999), 7
+    (``_pallas_blend_clamped_batchsrc`` :1688), 8 (``_pallas_blend_resident``
+    :1781), 9 (``_pallas_blend_band`` :1871) and 10
     (``_pallas_blend_clamped_pipelined`` :1963). They differ only in the
-    TPU's memory schedule (grid over canvases or objects, single or double
-    buffered DMAs), which Hopper has no counterpart to, so all four are
-    :func:`window_blend` (K4). ``interpret`` is accepted and ignored.
+    TPU's memory schedule (grid over canvases or objects, window, band or
+    resident-canvas DMAs, single or double buffering, one source DMA per
+    object or per canvas), which Hopper has no counterpart to, so all seven
+    are :func:`window_blend` (K4). ``interpret`` is accepted and ignored.
     Updates ``canvas_v`` in place and returns it."""
     del interpret
     return window_blend(canvas_v, src_v, meta)
@@ -943,6 +1190,44 @@ def _pallas_blend_packed(canvas_v: torch.Tensor, src_v: torch.Tensor,
 _pallas_blend_packed_pipelined = _pallas_blend_packed
 _pallas_blend_packed_clamped = _pallas_blend_packed
 _pallas_blend_clamped_pipelined = _pallas_blend_packed
+_pallas_blend_clamped_batchsrc = _pallas_blend_packed
+_pallas_blend_resident = _pallas_blend_packed
+_pallas_blend_band = _pallas_blend_packed
+
+
+def _pallas_blend_rowbaked(canvas_v: torch.Tensor, src_v: torch.Tensor,
+                           meta: torch.Tensor, interpret: bool = False) -> torch.Tensor:
+    """Counterpart of row 11's launcher (JAX :2201): row-baked sources
+    [B, N, MH, mw_a] rolled by ``dx`` only, so K4 with ``dy`` taken as 0.
+    A capped origin can leave ``dx >= 128``; the lanes the TPU masks then lie
+    past ``ws_x + MW = wp``, the plane's edge, where K4 cuts. Updates
+    ``canvas_v`` in place and returns it."""
+    del interpret
+    return window_blend(canvas_v, src_v, _zero_columns(meta, (3,)))
+
+
+def _pallas_blend_aligned(canvas_v: torch.Tensor, src_v: torch.Tensor,
+                          meta: torch.Tensor, interpret: bool = False) -> torch.Tensor:
+    """Counterpart of row 4's launcher (JAX :1363): whole-window sources
+    [B, N, MH, MW] blended at their window origins, so K4 with ``dx`` and
+    ``dy`` taken as 0. The TPU kernel blends ``where(valid, src, 0)``: an
+    all-zero source leaves the plane unchanged under Pillow's rule, which is
+    K4's skip of an invalid object. Updates ``canvas_v`` in place and
+    returns it."""
+    del interpret
+    return window_blend(canvas_v, src_v, _zero_columns(meta, (2, 3)))
+
+
+def _pallas_blend_planar(canvas_p: torch.Tensor, src_p: torch.Tensor,
+                         meta: torch.Tensor, interpret: bool = False) -> torch.Tensor:
+    """Counterpart of row 2's launcher (JAX :1094): planar u8 canvas
+    [B, 4, Hp, Wp] (padded by a window) and sources [B, N, 4, mh_a, mw_a].
+    The TPU kernel rolls by ``dx`` with no lane mask; its wrapped lanes come
+    from the zero pad (``MW - mw_a >= 128 > dx``), so this is K4's placement
+    and cut, on the planar entry. Updates ``canvas_p`` in place and returns
+    it."""
+    del interpret
+    return window_blend_planar(canvas_p, src_p, meta)
 
 
 def _blend_clamped_finish_impl(canvas_v, src_v, meta, out_hw, interpret, packed):
@@ -986,32 +1271,176 @@ def composite_batch_hybrid_packed(
     origin off the canvas drops the placement. Returns u8 [B, H, W, 4], or
     with ``packed_out`` (the plain clamped path only) the packed int32
     [B, H, W]. The output equals :func:`ops.compose.composite_batch` with
-    the rounded envelope. ``clamped`` and ``pipelined`` pick the JAX
-    launcher; all four run K4. ``interpret`` is ignored; ``rowbaked``,
-    ``band``, ``batchsrc`` and ``resident`` are not ported yet.
+    the rounded envelope.
+
+    The flags pick JAX's producer and launcher, in JAX's precedence:
+    ``rowbaked`` (its own producer, row 11), then on the clamped producer
+    (selected by ``clamped``, ``band``, ``batchsrc`` or ``resident``)
+    ``resident`` (row 8), ``batchsrc`` (7), ``band`` (9), ``pipelined``
+    (10) and the finish path (6); else the unclamped producer with rows 5
+    or 3. Every launcher runs K4. ``interpret`` is ignored.
     """
     del interpret
     if packed_out and not (clamped and not (band or batchsrc or resident
                                             or pipelined or rowbaked)):
         raise ValueError("packed_out is only supported on the default clamped path")
-    for name, on in (("rowbaked", rowbaked), ("band", band), ("batchsrc", batchsrc),
-                     ("resident", resident)):
-        if on:
-            raise NotImplementedError(
-                f"composite_batch_hybrid_packed({name}=True) is not ported yet (ROADMAP B5)"
-            )
     h_c, w_c = canvases.shape[1], canvases.shape[2]
-    if out_max_hw is None:
-        out_max_hw = (objs.shape[2], objs.shape[3])
-    env = (_round_up(out_max_hw[0], 8), _round_up(out_max_hw[1], 128))
-    producer = _hybrid_producer_clamped if clamped else _hybrid_producer
-    canvas_v, src_v, meta = producer(canvases, objs, obj_hw, boxes, env, method)
-    if packed_out:
-        return _pallas_blend_clamped_packed_out(canvas_v, src_v, meta, (h_c, w_c))
-    if clamped and not pipelined:
-        return _blend_clamped_finish_impl(canvas_v, src_v, meta, (h_c, w_c), False,
-                                          packed=False)
-    blend =_pallas_blend_clamped_pipelined if clamped else (
-        _pallas_blend_packed_pipelined if pipelined else _pallas_blend_packed
-    )
-    return packed_to_u8(blend(canvas_v, src_v, meta)[:, :h_c, :w_c])
+    env = _blend_envelope(objs, out_max_hw)
+    if rowbaked:
+        canvas_v, src_v, meta = _hybrid_producer_rowbaked(canvases, objs, obj_hw, boxes,
+                                                          env, method)
+        return packed_to_u8(_pallas_blend_rowbaked(canvas_v, src_v, meta)[:, :h_c, :w_c])
+    if clamped or band or batchsrc or resident:
+        canvas_v, src_v, meta = _hybrid_producer_clamped(canvases, objs, obj_hw, boxes,
+                                                         env, method)
+        if not (resident or batchsrc or band or pipelined):  # the finish path (row 6)
+            if packed_out:
+                return _pallas_blend_clamped_packed_out(canvas_v, src_v, meta, (h_c, w_c))
+            return _blend_clamped_finish_impl(canvas_v, src_v, meta, (h_c, w_c), False,
+                                              packed=False)
+        # rows 8, 7, 9 and 10 are one K4 launch. JAX takes the resident kernel
+        # only while the canvas fits its VMEM budget (_RESIDENT_VMEM_BUDGET_BYTES
+        # :1777, a TPU limit) and the windowed kernels otherwise; both branches
+        # compute the same blend, so the port has no budget.
+        return packed_to_u8(_pallas_blend_packed(canvas_v, src_v, meta)[:, :h_c, :w_c])
+    canvas_v, src_v, meta = _hybrid_producer(canvases, objs, obj_hw, boxes, env, method)
+    # rows 3 and 5 (pipelined) are one K4 launch
+    return packed_to_u8(_pallas_blend_packed(canvas_v, src_v, meta)[:, :h_c, :w_c])
+
+
+def composite_batch_aligned(
+    canvases: torch.Tensor,
+    objs: torch.Tensor,
+    obj_hw,
+    boxes,
+    out_max_hw: Tuple[int, int] | None = None,
+    method: str = "lanczos",
+    interpret: bool = False,
+) -> torch.Tensor:
+    """Shift-baked compose (port of JAX :1433, row 4): every object resampled
+    straight into its window position, then K4 blends the whole windows.
+    Arguments and result as :func:`composite_batch_hybrid_packed`; equal to
+    :func:`ops.compose.composite_batch` with the rounded envelope wherever a
+    box fits the window (the shifted tables equal the unshifted ones row for
+    row). ``interpret`` is ignored."""
+    del interpret
+    h_c, w_c = canvases.shape[1], canvases.shape[2]
+    canvas_v, src_v, meta = _hybrid_producer_aligned(
+        canvases, objs, obj_hw, boxes, _blend_envelope(objs, out_max_hw), method)
+    return packed_to_u8(_pallas_blend_aligned(canvas_v, src_v, meta)[:, :h_c, :w_c])
+
+
+def composite_batch_hybrid(
+    canvases: torch.Tensor,
+    objs: torch.Tensor,
+    obj_hw,
+    boxes,
+    out_max_hw: Tuple[int, int] | None = None,
+    method: str = "lanczos",
+    interpret: bool = False,
+) -> torch.Tensor:
+    """Planar two-program compose (port of JAX :1130, row 2): the traced
+    resize into planar u8 sources, then K4's planar entry on the planar
+    canvas padded by a window. Arguments and result as
+    :func:`composite_batch_hybrid_packed`. ``interpret`` is ignored."""
+    del interpret
+    h_c, w_c = canvases.shape[1], canvases.shape[2]
+    canvas_p, src_p, meta = _hybrid_producer_planar(
+        canvases, objs, obj_hw, boxes, _blend_envelope(objs, out_max_hw), method)
+    out_p = _pallas_blend_planar(canvas_p, src_p, meta)
+    return out_p[:, :, :h_c, :w_c].permute(0, 2, 3, 1).contiguous()
+
+
+# ------------------- gen-1: the planar fused compose on K1 -------------------
+
+def _pallas_compose_planar(canvas_p: torch.Tensor, objs_p: torch.Tensor, kh: torch.Tensor,
+                           kv_t: torch.Tensor, meta: torch.Tensor,
+                           interpret: bool = False) -> torch.Tensor:
+    """Counterpart of row 1's launcher (JAX :937) on K1, which computes the
+    same thing in NHWC: exact separable resample from the supplied tables,
+    identity copy where ``same``, alpha-over at ``(ws_x + dx, ws_y + dy)``,
+    cut at the padded canvas, invalid objects dropped.
+
+    canvas_p u8 [B, 4, Hp, Wp]; objs_p u8 [B, N, 4, ph, pw]; kh i32
+    [B, N, mw_out, pw]; kv_t i32 [B, N, ph, mh_out] (transposed, as JAX
+    takes it); meta i32 [B, N, 6]. The transposes to and from K1's layout
+    are plain torch. Updates ``canvas_p`` in place and returns it;
+    ``interpret`` is ignored."""
+    del interpret
+    mh_out, mw_out = kv_t.shape[3], kh.shape[2]
+    canvas = canvas_p.permute(0, 2, 3, 1).contiguous()
+    x = meta[..., 0] + meta[..., 2]
+    y = meta[..., 1] + meta[..., 3]
+    boxes = torch.stack([x, y, x + mw_out, y + mh_out], dim=-1).to(torch.int32)
+    flags = (meta[..., 5] > 0).to(torch.uint8) * FLAG_LIVE + (
+        meta[..., 4] > 0).to(torch.uint8) * FLAG_IDENTITY
+    fused_compose(canvas, objs_p.permute(0, 1, 3, 4, 2).contiguous(),
+                  kh.to(torch.int32).contiguous(),
+                  kv_t.transpose(2, 3).to(torch.int32).contiguous(),
+                  boxes.contiguous(), flags.contiguous())
+    canvas_p.copy_(canvas.permute(0, 3, 1, 2))
+    return canvas_p
+
+
+def _pallas_args(canvases, objs, obj_hw, boxes, kh, kv):
+    """K1's arguments for a gen-1 compose: (a new NHWC canvas holding
+    ``canvases``, objects, kh, kv, boxes i32, flags), on the canvases'
+    device. ``FLAG_LIVE`` comes from ``_window_meta6``'s drop rule and
+    ``FLAG_IDENTITY`` from the box size equal to the object's."""
+    dev = canvases.device
+    boxes = _long(boxes, dev)
+    in_h, in_w, h, w = _box_sizes(obj_hw, boxes, dev)
+    meta = _window_meta6(boxes, tuple(canvases.shape[1:3]))
+    flags = (meta[..., 5] > 0).to(torch.uint8) * FLAG_LIVE + (
+        (w == in_w) & (h == in_h)).to(torch.uint8) * FLAG_IDENTITY
+    table = lambda t: torch.as_tensor(t, device=dev).to(torch.int32).contiguous()  # noqa: E731
+    return (canvases.to(torch.uint8).contiguous().clone(),
+            objs.to(dev, torch.uint8).contiguous(), table(kh), table(kv),
+            boxes.to(torch.int32).contiguous(), flags.contiguous())
+
+
+def composite_batch_pallas(
+    canvases: torch.Tensor,
+    objs: torch.Tensor,
+    obj_hw,
+    boxes,
+    kh,
+    kv,
+    interpret: bool = False,
+) -> torch.Tensor:
+    """Gen-1 fused compose over a batch (port of JAX :983, row 1), on K1.
+
+    canvases u8 [B, H, W, 4] (never written); objs u8 [B, N, ph, pw, 4];
+    obj_hw [B, N, 2]; boxes [B, N, 4]; kh i32 [B, N, mw_out, pw] and kv i32
+    [B, N, mh_out, ph], host-exact or traced. JAX's (8, 128) table padding
+    and the ``kv`` transpose are TPU layout and do not carry over. Returns u8
+    [B, H, W, 4]; bit-exact vs PIL with host tables. ``interpret`` is
+    ignored."""
+    del interpret
+    canvas, *rest = _pallas_args(canvases, objs, obj_hw, boxes, kh, kv)
+    return fused_compose(canvas, *rest)
+
+
+def composite_batch_pallas_host_tables(
+    canvases,
+    objs,
+    obj_hw,
+    boxes,
+    out_max_hw: Tuple[int, int] | None = None,
+    method: str = "lanczos",
+    interpret: bool = False,
+) -> torch.Tensor:
+    """:func:`composite_batch_pallas` with Pillow-exact host tables for
+    concrete boxes (port of JAX :4266): bit-exact vs PIL. ``obj_hw`` and
+    ``boxes`` are host ints; ``canvases`` and ``objs`` are tensors (their
+    device is the one used) or numpy arrays, which go to the CUDA card."""
+    del interpret
+    if not torch.is_tensor(canvases):
+        canvases = torch.from_numpy(np.asarray(canvases)).to(resolve_device("cuda"))
+    objs = torch.as_tensor(objs).to(canvases.device)
+    obj_hw = np.asarray(obj_hw.cpu() if torch.is_tensor(obj_hw) else obj_hw, np.int64)
+    boxes = np.asarray(boxes.cpu() if torch.is_tensor(boxes) else boxes, np.int64)
+    pad = tuple(objs.shape[2:4])
+    kh, kv, _, _ = fused_tables_prep(obj_hw, boxes, tuple(canvases.shape[1:3]), pad,
+                                     out_max_hw or pad, method)
+    return composite_batch_pallas(canvases, objs, obj_hw, boxes, kh, kv)

@@ -316,6 +316,40 @@ def resize_f32(
     return torch.where(same[..., None, None, None], passthrough, out).to(torch.float32)
 
 
+def resize_f32_shifted(
+    img: torch.Tensor,
+    in_hw,
+    out_hw,
+    out_offset_hw,
+    out_max_hw: Tuple[int, int],
+    method: str = "lanczos",
+) -> torch.Tensor:
+    """:func:`resize_f32` with the live output region starting at
+    ``out_offset_hw`` = (off_y, off_x) (size tensors or ints of shape
+    [...]) inside the [out_max_h, out_max_w] buffer (port of JAX
+    resize.py:196-222). The shift is baked into the tables: row ``o`` of a
+    table built with offset ``off`` equals row ``o - off`` of the unshifted
+    table bit for bit, since ``o - off`` is an exact integer in f32. Pillow's
+    identity shortcut is left to the caller (it needs a shifted copy).
+    Returns float32 [..., out_max_h, out_max_w, C]."""
+    dev = img.device
+    in_h, in_w, out_h, out_w, off_y, off_x = (
+        torch.as_tensor(v, device=dev).to(torch.int64)
+        for v in (*in_hw, *out_hw, *out_offset_hw)
+    )
+    out_max_h, out_max_w = out_max_hw
+    hm, wm, channels = img.shape[-3:]
+    in_w, out_w, off_x = torch.broadcast_tensors(in_w, out_w, off_x)
+    in_h, out_h, off_y = torch.broadcast_tensors(in_h, out_h, off_y)
+    kh = build_coeffs_traced(in_w, out_w, wm, out_max_w, method, off_x)
+    kv = build_coeffs_traced(in_h, out_h, hm, out_max_h, method, off_y)
+    src = premultiply_rgba(img) if channels == 4 else img
+    out = resample_fixed(src, kh, kv)
+    if channels == 4:
+        out = unpremultiply_rgba(out)
+    return out.to(torch.float32)
+
+
 def resize_u8(img: torch.Tensor, in_hw, out_hw, out_max_hw: Tuple[int, int],
               method: str = "lanczos") -> torch.Tensor:
     """uint8 form of :func:`resize_f32` (port of JAX resize.py:489-499)."""

@@ -244,11 +244,17 @@ def test_hybrid_flag_rules():
             ck.composite_batch_hybrid_packed(ct, ot, hw, boxes, packed_out=True, **bad)
         with pytest.raises(ValueError, match="packed_out"):
             jcp.composite_batch_hybrid_packed(*jargs, packed_out=True, interpret=True, **bad)
+    # each flag selects its own path whatever ``clamped`` says (JAX :2413-2419)
+    env = (ck._round_up(objs.shape[2], 8), ck._round_up(objs.shape[3], 128))
+    plain = composite_batch(ct, ot, hw, boxes, env).numpy()
     for flag in ("rowbaked", "band", "batchsrc", "resident"):
         for clamped in (False, True):
-            with pytest.raises(NotImplementedError, match="B5"):
-                ck.composite_batch_hybrid_packed(ct, ot, hw, boxes, clamped=clamped,
-                                                 **{flag: True})
+            out = ck.composite_batch_hybrid_packed(ct, ot, hw, boxes, clamped=clamped,
+                                                   **{flag: True}).numpy()
+            ref = jcp.composite_batch_hybrid_packed(*jargs, interpret=True, clamped=clamped,
+                                                    **{flag: True})
+            _assert_within_one(out, np.asarray(ref))
+            assert np.array_equal(out, plain), (flag, clamped)
 
 
 def test_hybrid_never_writes_the_canvases():

@@ -91,6 +91,26 @@ def test_port_imports_no_jax_after_cpu_engine_run():
         "    torch.from_numpy(a.objects)[None], a.obj_hw[None],\n"
         "    np.array([[[5, 5, 60, 60]] * len(b.meta)]), clamped=True)\n"
         "assert h.shape == (1, 120, 160, 4) and not bool((h == 255).all())\n"
+        "import image_transformation_tpu_torch.ops as ops\n"
+        "from image_transformation_tpu_torch.ops import _build\n"
+        "cv = torch.full((1, 120, 160, 4), 255, dtype=torch.uint8)\n"
+        "ob = torch.from_numpy(a.objects)[None]\n"
+        "bx = np.array([[[5, 5, 60, 60]] * len(b.meta)])\n"
+        "outs = [ops.composite_batch_hybrid(cv, ob, a.obj_hw[None], bx),\n"
+        "        ops.composite_batch_aligned(cv, ob, a.obj_hw[None], bx)]\n"
+        "outs += [compose_kernels.composite_batch_hybrid_packed(cv, ob, a.obj_hw[None], bx,\n"
+        "         **{f: True}) for f in ('rowbaked', 'band', 'batchsrc', 'resident')]\n"
+        "assert all(o.shape == (1, 120, 160, 4) and torch.equal(o, outs[0]) for o in outs)\n"
+        "x = ops.composite_batch_pallas_host_tables(cv, ob, a.obj_hw[None], bx)\n"
+        "kh, kv, _, fl = compose_kernels.fused_tables_prep(a.obj_hw[None], bx, (120, 160),\n"
+        "    a.objects.shape[1:3], a.objects.shape[1:3])\n"
+        "t = ops.composite_canvas_tables(cv[0], ob[0], bx[0], kh[0], kv[0], fl[0] & 2)\n"
+        "assert torch.equal(x[0], t) and not bool((t == 255).all())\n"
+        "p = torch.zeros((1, 16, 128), dtype=torch.int32)\n"
+        "for v in compose_kernels.STAGE_VARIANTS:\n"
+        "    compose_kernels.window_blend_stage(p, torch.zeros((1, 2, 8, 8), dtype=torch.int32),\n"
+        "                                       torch.zeros((1, 2, 6), dtype=torch.int32), v)\n"
+        "assert _build._LIB is None\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'image_transformation_tpu.'))"
         " or m == 'image_transformation_tpu']\n"
         "assert not bad, bad\n"

@@ -1,25 +1,38 @@
 #!/usr/bin/env python3
 """Where the hybrid compose's time goes, on one CUDA card.
 
-    python -m tools.profile_k4
+    python -m tools.profile_k4             # K4 per launch, the hybrid step
+    python -m tools.profile_k4 --anatomy   # K4's stage split (row 15)
 
 Run from the root of a checkout (it reuses chip_smoke.py's device and build
-phases and its hybrid batch: squarespace, 1080x1920, B=64, boxes from seed 0
-plus an identity box and an edge box). Prints:
+phases, its hybrid batch: squarespace, 1080x1920, B=64, boxes from seed 0
+plus an identity box and an edge box, and its bounds). Prints:
 
 - K4's device time per launch from torch.profiler, mean of ``REPS`` calls,
-  in the unclamped and the clamped geometry, with the placement pixels it
-  covers and the bytes it moves (4 per covered source pixel, 8 per plane
-  pixel read and written);
+  in the unclamped and the clamped geometry, with the bytes these inputs
+  need (chip_smoke.blend_bound: 4 per pixel of each live box, 8 per plane
+  pixel under a source pixel of alpha > 0), the rate they give and the
+  bound at 3.35 TB/s;
 - the clamped hybrid compose over ``REPS`` calls ending in one
   synchronize: host wall per call, device busy, idle share, and the device
   time of its largest kernels by name;
+- with ``--anatomy``, instead: each stage variant of K4 (the counterpart of
+  benchmarks/bisect_resize.py --anatomy) on the clamped producer's outputs,
+  device time per launch (profiler, mean of ``REPS``) in ``ROUNDS`` rounds
+  that take the variants in turn (median and spread) and CUDA-event median,
+  beside its bound; then the split of K4's time into memory and coverage
+  (``dma_only``), the placement (``no_roll``, ``no_shift``) and Pillow's
+  alpha-over (``full`` - ``no_blend``, with whether it lies outside the two
+  variants' spread). It fails if ``no_blend`` or ``dma_only`` runs under
+  half its bytes' bound (bytes not moved);
 
 each line with the card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
 
+import statistics
+import sys
 import time
 
 import torch
@@ -29,23 +42,7 @@ from image_transformation_tpu_torch.ops import compose_kernels as ck
 from tools.profile_k2 import _kernel_times
 
 REPS = 10
-
-
-def _traffic(plane: torch.Tensor, src: torch.Tensor, meta: torch.Tensor):
-    """(covered placement pixels, distinct plane pixels written) of one K4
-    launch: the placement rectangles cut at the plane's edge."""
-    B, hp, wp = plane.shape
-    mh, mw = src.shape[2], src.shape[3]
-    mask = torch.zeros((B, hp, wp), dtype=torch.bool, device=plane.device)
-    covered = 0
-    for b, rows in enumerate(meta.tolist()):
-        for ws_x, ws_y, dx, dy, _, valid in rows:
-            if valid <= 0:
-                continue
-            x, y = ws_x + dx, ws_y + dy
-            covered += max(0, min(y + mh, hp) - y) * max(0, min(x + mw, wp) - x)
-            mask[b, y:y + mh, x:x + mw] = True
-    return covered, int(mask.sum())
+ROUNDS = 3
 
 
 def profile_k4(smi: str, device) -> None:
@@ -62,15 +59,58 @@ def profile_k4(smi: str, device) -> None:
         us = sum(v for k, v in _kernel_times(prof, REPS).items() if "window_blend" in k)
         if us == 0:
             raise RuntimeError("the profiler saw no K4 device time")
-        covered, written = _traffic(plane, src, meta)
-        gbytes = (4 * covered + 8 * written) / 1e9
+        bnd = chip_smoke.blend_bound(plane.shape, src, meta)
+        gbytes = bnd["bound_gbytes"]
         print(f"[profile] K4 {'clamped' if clamped else 'unclamped'} plane "
               f"{plane.shape[1]}x{plane.shape[2]} B={plane.shape[0]} N={src.shape[1]} "
               f"source {src.shape[2]}x{src.shape[3]}: {us:.1f} us per launch (mean of "
-              f"{REPS}); {covered} placement pixels, {written} plane pixels written, "
-              f"{gbytes:.3f} GB moved, {gbytes / (us * 1e-6):.0f} GB/s on {smi}")
+              f"{REPS}); the bound's {gbytes:.4f} GB at {gbytes / (us * 1e-6):.0f} GB/s, bound "
+              f"{1e3 * bnd['bound_ms']:.1f} us by {bnd['bound_by']} on {smi}")
         del plane, src, meta
         torch.cuda.empty_cache()
+
+
+def anatomy(smi: str, device) -> None:
+    _, _, canvases, objs, hw, boxes, env = chip_smoke.hybrid_inputs(device)
+    plane, src, meta = ck._hybrid_producer_clamped(canvases, objs, hw, boxes, env, "lanczos")
+    metas = {v: ck._zero_columns(meta, ck.STAGE_ZEROED[v]) for v in ck.STAGE_VARIANTS}
+    dev_us = {v: [] for v in ck.STAGE_VARIANTS}
+    for _ in range(ROUNDS):  # the variants in turn, ROUNDS times: their spread
+        for variant in ck.STAGE_VARIANTS:
+            # the variant's launch on its meta, made out of the timed loop
+            switch = "full" if variant in ck.STAGE_BLENDS else "no_blend"
+            work = plane.clone()
+            ck.window_blend_stage(work, src, metas[variant], switch)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(REPS):
+                    ck.window_blend_stage(work, src, metas[variant], switch)
+                torch.cuda.synchronize()
+            dev_us[variant].append(sum(v for k, v in _kernel_times(prof, REPS).items()
+                                       if "window_blend" in k))
+    events = chip_smoke.stage_split(plane, src, meta, REPS)
+    med = {v: statistics.median(t) for v, t in dev_us.items()}
+    spread = {v: max(t) - min(t) for v, t in dev_us.items()}
+    for variant in ck.STAGE_VARIANTS:
+        bnd = chip_smoke.blend_bound(plane.shape, src, metas[variant],
+                                     blends=variant in ck.STAGE_BLENDS)
+        if variant not in ck.STAGE_BLENDS and min(dev_us[variant]) < 500 * bnd["bound_ms"]:
+            raise RuntimeError(f"{variant} ran {min(dev_us[variant]):.1f} us, under half its "
+                               f"bound {1e3 * bnd['bound_ms']:.1f} us: its bytes did not move")
+        rounds = ", ".join(f"{t:.1f}" for t in dev_us[variant])
+        print(f"[anatomy] {variant}: {med[variant]:.1f} us per launch (profiler, median of "
+              f"{ROUNDS} rounds of {REPS}: {rounds}; spread {spread[variant]:.1f}), "
+              f"{1e3 * events[variant]:.1f} us (CUDA-event median); bound "
+              f"{1e3 * bnd['bound_ms']:.1f} us ({bnd['bound_gbytes']:.4f} GB) on {smi}")
+    full, alpha = med["full"], med["full"] - med["no_blend"]
+    resolved = abs(alpha) > spread["full"] + spread["no_blend"]
+    print(f"[anatomy] K4 (full) {full:.1f} us; memory and coverage (dma_only) "
+          f"{med['dma_only']:.1f} us ({100 * med['dma_only'] / full:.1f}%); placement "
+          f"(no_blend - dma_only) {med['no_blend'] - med['dma_only']:.1f} us; alpha-over "
+          f"(full - no_blend) {alpha:.1f} us ({100 * alpha / full:.1f}%), "
+          f"{'outside' if resolved else 'within'} the two variants' spread "
+          f"({spread['full'] + spread['no_blend']:.1f} us); no_roll {med['no_roll']:.1f} us, "
+          f"no_shift {med['no_shift']:.1f} us on {smi}")
 
 
 def hybrid_step(smi: str, device) -> None:
@@ -104,6 +144,9 @@ def main() -> int:
     smi = chip_smoke.phase_device()
     chip_smoke.phase_build()
     device = torch.device("cuda", 0)
+    if "--anatomy" in sys.argv[1:]:
+        anatomy(smi, device)
+        return 0
     profile_k4(smi, device)
     hybrid_step(smi, device)
     return 0
