@@ -16,7 +16,9 @@ exits non-zero:
    fused_compose_reference on the card, bit-exact (tolerance 0), at the
    CLI geometry (squarespace at 9:16, B=1) and the batched serving
    geometry (squarespace objects shared, 1080x1920, B=64, boxes from
-   seed 0), with median CUDA-event times of both;
+   seed 0), with median CUDA-event times of both; then K1's launches
+   (bounds, resample, blend) with ptxas's registers, shared memory and
+   spills from the build log;
 4. main path: the port CLI's main() with --device cuda --api fake
    --refine-iters 2 on squarespace 9:16 and audio_book 16:9. K1 launch
    counts are reset just before and read just after; every draft must
@@ -26,7 +28,8 @@ exits non-zero:
    (ops/compose_kernels.fused_v3) against fused_v3_reference at B=64 with
    boxes from seed 0 and per-object static windows, and K3
    (restore_windows) against restore_windows_reference, both bit-exact
-   (tolerance 0), with median CUDA-event times of both; a 3-step reuse
+   (tolerance 0), with median CUDA-event times of both (and K2's launches,
+   resample and blend, with ptxas's figures); a 3-step reuse
    chain (K3 + K2 in place) equal to fresh renders; then the main path of
    the slice, throughput_sweep(kernel="pallas") at 1080p B=256 with
    warmup 1 and 5 reps, with the K2/K3 launch counts reset just before and
@@ -53,7 +56,8 @@ exits non-zero:
    its arguments, and the output equal to composite_exact and PIL. Row 15:
    the five stage variants of K4 timed in turn (launch count read around
    them), each against its plain version, bit-exact;
-8. one JSON line of kernel results (each with its bound: the larger of the
+8. one JSON line of kernel results (K1 and K2 with ``earlier_ms``, their
+   time before the redesign; each with its bound: the larger of the
    bytes it must move over 3.35 TB/s and its operations over 67 TFLOP/s,
    H100 SXM peaks from NVIDIA's data sheet), the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
@@ -100,6 +104,14 @@ HYBRID_FORMS = (("row3", False, False), ("row5", False, True),
                 ("row6", True, False), ("row10", True, True))
 BATCH_HW = (1080, 1920)
 HYBRID_B = 64
+#: K1's and K2's launches per wrapper call: (label, a substring of the
+#: kernel's mangled name in ptxas's report)
+K1_LAUNCHES = (("bounds", "k1_bounds"), ("resample", "k1_resample"), ("blend", "K1Rects"))
+K2_LAUNCHES = (("resample", "v3_resample"), ("blend", "V3Rects"))
+#: K1's and K2's times before their redesign (chip_smoke.py's median CUDA-event
+#: ms, the last run of the PR before it; NVIDIA H100 80GB HBM3, 700.00 W)
+EARLIER_MS = {"row12_cli_9x16_b1": 0.228, "row12_1080p_b64": 9.890,
+              "row1_cli_9x16_b1": 0.206, "row1_1080p_b64": 10.083, "fused_v3": 0.654}
 
 
 def smi_line() -> str:
@@ -182,6 +194,26 @@ def phase_build():
           f"total {time.perf_counter() - t0:.2f}s")
 
 
+def launch_text(launches, dynamic_smem) -> str:
+    """Each launch of a wrapper call with ptxas's registers, shared memory
+    (static, and dynamic as launched) and spills, from this process's build
+    log (``phase_build``)."""
+    from image_transformation_tpu_torch.ops import _build
+
+    usage = _build.ptxas_usage(_build.last_build_report)
+    parts = []
+    for (label, key), dyn in zip(launches, dynamic_smem):
+        found = [u for name, u in usage.items() if key in name]
+        if not found:
+            parts.append(f"{label} (no ptxas report: the library was built before)")
+            continue
+        u = found[0]
+        parts.append(f"{label} ({u['registers']} registers, smem {u['smem']} B static + "
+                     f"{dyn} B dynamic, stack {u['stack']} B, spills {u['spill_stores']}/"
+                     f"{u['spill_loads']} B)")
+    return " -> ".join(parts)
+
+
 def _geometry_inputs(bundle_dir: Path, canvas_hw, batch: int, seed: int, device):
     """Canvas [B, H, W, 4] (the bundle's solid median colour), shared
     objects [1, N, ph, pw, 4] and K1 tables for random downscale boxes."""
@@ -247,7 +279,9 @@ def phase_kernel(smi: str):
         k2 = cuda_ms(lambda: fused_compose(work_k, objects, *tables), k_reps)
         p2 = cuda_ms(lambda: fused_compose_reference(work_p, objects, *tables), p_reps)
         ms, plain_ms = min(k1, k2), min(p1, p2)
+        n_obj, pad = objects.shape[1], objects.shape[2:4]
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             earlier_ms=EARLIER_MS[f"row12_{name.replace('serve_', '')}"],
                              **k1_bound(canvas, objects, *tables))
         print(f"[kernel] {name}: canvas {hw[0]}x{hw[1]} B={batch} "
               f"N={objects.shape[1]} pad {objects.shape[2]}x{objects.shape[3]}: "
@@ -256,6 +290,10 @@ def phase_kernel(smi: str):
               f"({p1:.3f}, {p2:.3f}), {_bound_text(results[name])} on {smi}")
         del canvas, objects, tables, out_k, out_p, work_k, work_p
         torch.cuda.empty_cache()
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+    print(f"[kernel] K1 launches per call: "
+          f"{launch_text(K1_LAUNCHES, (0, ck._resample_smem_bytes(*pad), 16 * n_obj))}")
     return results
 
 
@@ -564,11 +602,14 @@ def phase_batched(smi: str):
         lambda: ck.fused_v3(work_k, objs_p, meta, env),
         lambda: ck.fused_v3_reference(work_p, objs_p, meta, env), 5, 2)
     results["fused_v3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               earlier_ms=EARLIER_MS["fused_v3"],
                                **k2_bound(base, objs_p, meta, env))
     print(f"[batched] K2 canvas {H}x{W} (plane {hp}x{wp}) B={B} N={N} shared objects, "
           f"static windows: K2 == plain (max abs err {err}, {changed} pixels changed); "
           f"K2 {ms:.3f} ms ({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms "
           f"({raw[2]:.3f}, {raw[3]:.3f}), {_bound_text(results['fused_v3'])} on {smi}")
+    smem = (ck._resample_smem_bytes(*objs_p.shape[3:]), 16 * N)
+    print(f"[batched] K2 launches per call: {launch_text(K2_LAUNCHES, smem)}")
     del work_k, work_p
 
     # K3 vs its plain version: restore the windows of that render
@@ -909,7 +950,8 @@ def _ops_row1(smi: str) -> dict:
                 raise AssertionError(f"[ops] row1 {name}: canvas {b} != composite_exact")
             if not np.array_equal(out[b].cpu().numpy(), pil):
                 raise AssertionError(f"[ops] row1 {name}: canvas {b} != PIL")
-        out_rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, launches=launches, **bnd)
+        out_rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, launches=launches,
+                              earlier_ms=EARLIER_MS[f"row1_{name}"], **bnd)
         print(f"[ops] row1 composite_batch_pallas_host_tables {name} ({H}x{W} B={B}): K1 == "
               f"plain (max abs err {err}); K1 {ms:.3f} ms ({raw[0]:.3f}, {raw[1]:.3f}), plain "
               f"{plain_ms:.3f} ms ({raw[2]:.3f}, {raw[3]:.3f}), {_bound_text(bnd)}; K1 "
@@ -987,12 +1029,13 @@ def main_smoke() -> int:
         _entry("fused_compose", KERNEL_SOURCE,
                f"{KERNEL_REPLACES} (kernel-table row 12), {KERNEL_REPLACES_ROW1}",
                launches["fused_compose"] + sum(r["launches"] for r in row1.values()), cli,
-               max_abs_err=max(r["max_abs_err"] for r in (cli, serve, *row1.values())),
+               earlier_ms=cli["earlier_ms"], max_abs_err=max(r["max_abs_err"] for r in (cli, serve, *row1.values())),
                geometries={"row12_cli_9x16_b1": cli, "row12_1080p_b64": serve,
                            **{f"row1_{k}": v for k, v in row1.items()}}),
-        *(_entry(name, source, replaces, batched_launches[name], batched[name])
-          for name, source, replaces in (("fused_v3", V3_SOURCE, V3_REPLACES),
-                                         ("restore_windows", RESTORE_SOURCE, RESTORE_REPLACES))),
+        _entry("fused_v3", V3_SOURCE, V3_REPLACES, batched_launches["fused_v3"],
+               batched["fused_v3"], earlier_ms=batched["fused_v3"]["earlier_ms"]),
+        _entry("restore_windows", RESTORE_SOURCE, RESTORE_REPLACES,
+               batched_launches["restore_windows"], batched["restore_windows"]),
         # the default clamped form (row 6); every row's numbers follow
         _entry("window_blend", BLEND_SOURCE, BLEND_REPLACES,
                hybrid_launches + sum(ops_rows[k]["launches"] for k in packed if k in ops_rows),

@@ -17,52 +17,47 @@
 // plane edge cuts exactly what the TPU kernel's window cuts; nothing
 // outside an object's window changes.
 //
-// What bounds it on this card: integer multiply-adds of the two resample
-// passes, and the f32 table arithmetic (a degree-12 Horner per tap), then
-// the plane bytes under the objects. What the design does about it:
-// - tap bounds: each block computes, for its 32 output columns (or 8 output
-//   rows), each row's window [xmin, xmax) and weight sum, and walks only the
-//   union of those windows, not the whole input extent; the 32x32 table
-//   tile is built in shared memory per step, never stored in device memory;
+// What bounds it on this card: the integer multiply-adds of the two
+// resample passes on each window's taps (bound by operations), and the f32
+// table arithmetic (a degree-12 Horner and a divide per tap). What the
+// design does about it, in two launches:
+// - resample (csrc/resample.cuh), one block per placement and 32x32 output
+//   tile: each block builds its 32 columns' and 32 rows' windows, weight
+//   sums and quantized taps once, into compact [rows][taps] arrays in
+//   shared memory (each tap's coefficient is computed once per tile); each
+//   output column and row then walks only its own window; the
+//   source patch is staged premultiplied in shared memory, four pixels of
+//   the four planes (16 bytes) per thread, and the H result stays in shared
+//   memory, so there is no scratch in device memory between the passes;
 // - the f32 table arithmetic uses __fmul_rn / __fadd_rn / __fdiv_rn, which
 //   nvcc never contracts into FMAs, and each row's weight sum adds the taps
-//   in index order, so the tables equal the plain version's bit for bit;
-// - z-order without a sequential grid: Hopper runs blocks in no order and
-//   windows of different objects on one canvas overlap. Launch 3 gives
-//   each covered plane pixel to one thread, in the block of the LAST
-//   object that covers it; that thread walks k = 0..N-1 and blends every
-//   object covering the pixel in order;
-// - scratch: the wrapper (ops/compose_kernels.py:fused_v3) launches the
-//   three kernels over chunks of canvases, so the u8 scratch (tmp, res) is
-//   bounded by its budget whatever the batch; at 1080p B=1280 the plane
-//   alone is 10.6 GB.
+//   in index order, so the tables equal the plain version's
+//   (build_coeffs_traced) bit for bit;
+// - blend (csrc/box_blend.cuh): over each placement's box only, z-order by
+//   the last covering placement (Hopper runs blocks in no order and the
+//   windows of one canvas overlap), the canvas's boxes staged in shared
+//   memory;
+// - scratch: the wrapper (ops/compose_kernels.py:fused_v3) launches over
+//   chunks of canvases, so `res` stays within its budget whatever the
+//   batch; at 1080p B=1280 the plane alone is 10.6 GB.
 //
 // Interface (all contiguous, on one device; see ops/compose_kernels.py):
 //   plane   i32 [B, hp, wp]            packed RGBA, updated in place
 //   objects u8  [Bo, N, 4, ph, pw]     planar, Bo == 1 (shared) or B
 //   meta    i32 [B, N, 10]             ws_x ws_y dx dy same valid in_h in_w out_h out_w
-//   tmp     u8  [B, N, 4, ph, mw]      scratch (H pass, premultiplied)
 //   res     u8  [B, N, mh, mw, 4]      scratch (resampled RGBA)
 // Sizes are clamped to the envelopes (in to (ph, pw), out to (mh, mw)).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "box_blend.cuh"
 #include "pillow.cuh"
+#include "resample.cuh"
 
 namespace {
 
-using pillow::alpha_over;
-using pillow::clip8;
-using pillow::muldiv255;
-
-constexpr int TILE_X = 32;   // output columns per block (one warp)
-constexpr int TILE_Y = 8;    // rows per block
-constexpr int TILE_K = 32;   // contraction step staged in shared memory
-constexpr int THREADS = TILE_X * TILE_Y;
 constexpr int META = 10;
-
-static_assert(TILE_Y * TILE_K == THREADS, "one staged entry per thread");
 
 struct Meta {
   int x1, y1, same, valid, in_h, in_w, out_h, out_w;
@@ -85,11 +80,6 @@ __device__ __forceinline__ Meta load_meta(const int* __restrict__ meta, int bk,
   r.out_h = clampi(m[8], mh);
   r.out_w = clampi(m[9], mw);
   return r;
-}
-
-__device__ __forceinline__ bool covers(const Meta& m, int y, int x) {
-  return m.valid > 0 && y >= m.y1 && y < m.y1 + m.out_h && x >= m.x1 &&
-         x < m.x1 + m.out_w;
 }
 
 // ---- the f32 table formula (ops/resize.py:resample_coeff_matrix) ----
@@ -158,7 +148,7 @@ __device__ Row row_params(const Axis& a, int o, int out_size) {
   return r;
 }
 
-// quantized coefficient of tap i (0 outside the row's window)
+// quantized coefficient of tap i of a row with window [lo, hi) (0 outside)
 __device__ __forceinline__ int coeff(const Axis& a, float center, float wsum,
                                      int lo, int hi, int i) {
   if (i < lo || i >= hi) return 0;
@@ -167,242 +157,111 @@ __device__ __forceinline__ int coeff(const Axis& a, float center, float wsum,
   return (int)truncf(__fadd_rn(scaled, w < 0.0f ? -0.5f : 0.5f));
 }
 
-// (1) tmp[b,k,c,y,ox] = clip8(sum_j kh[ox,j] * premul(obj[y,j])[c]).
-// Block: 32 output columns x 8 source rows of one (b, k).
-// grid (B*N, ceil(mw/32), ceil(ph/8)).
-__global__ void __launch_bounds__(THREADS)
-v3_hpass(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
-         uint8_t* __restrict__ tmp, int Bo, int N, int ph, int pw, int mh,
-         int mw) {
-  const int bk = blockIdx.x;
-  const Meta m = load_meta(meta, bk, ph, pw, mh, mw);
-  const int ox0 = blockIdx.y * TILE_X, y0 = blockIdx.z * TILE_Y;
-  // uniform per block; rows at or past in_h are never read by the V pass
-  if (m.valid <= 0 || m.same > 0 || ox0 >= m.out_w || y0 >= m.in_h) return;
-  const int b = bk / N, k = bk - b * N;
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TILE_X + tx;
-  const size_t plane = (size_t)ph * pw;
-  const uint8_t* obj = objects + ((size_t)(Bo == 1 ? 0 : b) * N + k) * 4 * plane;
+// K2's tables: the tile's windows, weight sums and quantized taps, built
+// once per tile into compact [rows][taps] arrays in shared memory (ragged:
+// window c's taps start at hoff[c] / voff[c]; read by SharedTaps), with the
+// plain version's f32 op order (row_params, coeff).
+struct V3Tables {
+  Axis axh, axv;
+  int out_w, out_h;
+  int* coef_h;  // dynamic shared memory, cap_h entries
+  int* coef_v;  // cap_v entries
+  int cap_h, cap_v;
 
-  __shared__ float c_center[TILE_X], c_wsum[TILE_X];
-  __shared__ int c_lo[TILE_X], c_hi[TILE_X];
-  __shared__ int w_s[TILE_X][TILE_K + 1];  // +1: conflict-free column reads
-  __shared__ int4 p_s[TILE_Y][TILE_K];
-  __shared__ int s_span[2];
-
-  const Axis ax = axis_params(m.in_w, m.out_w);
-  if (ty == 0) {
-    const Row r = row_params(ax, ox0 + tx, m.out_w);
-    c_center[tx] = r.center;
-    c_wsum[tx] = r.wsum;
-    c_lo[tx] = r.lo;
-    c_hi[tx] = r.hi;
-    // union of the live windows of this block's columns
-    int lo = r.hi > r.lo ? r.lo : 0x7fffffff, hi = r.hi > r.lo ? r.hi : 0;
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  __device__ void prepare(resample::TileWindows& w, int ox0, int oy0) {
+    __shared__ float s_center[resample::TX + resample::TY], s_wsum[resample::TX + resample::TY];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (warp < 2) {  // warp 0: the tile's columns, warp 1: its rows
+      const Row r = warp == 0 ? row_params(axh, ox0 + lane, out_w)
+                              : row_params(axv, oy0 + lane, out_h);
+      s_center[warp * resample::TX + lane] = r.center;
+      s_wsum[warp * resample::TX + lane] = r.wsum;
+      resample::set_window(w, warp, lane, r.lo, r.hi);
     }
-    if (tx == 0) {
-      s_span[0] = lo;
-      s_span[1] = hi;
-    }
-  }
-  __syncthreads();
-  const int jlo = s_span[0], jhi = s_span[1];
-
-  int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-  for (int j0 = jlo; j0 < jhi; j0 += TILE_K) {
-    for (int e = tid; e < TILE_X * TILE_K; e += THREADS) {
-      const int r = e / TILE_K, c = e - r * TILE_K;
-      w_s[r][c] = coeff(ax, c_center[r], c_wsum[r], c_lo[r], c_hi[r], j0 + c);
-    }
-    {
-      const int r = tid / TILE_K, c = tid - r * TILE_K;
-      const int gy = y0 + r, gj = j0 + c;
-      int4 p = make_int4(0, 0, 0, 0);
-      if (gy < ph && gj < pw) {
-        const size_t at = (size_t)gy * pw + gj;
-        const int a = obj[3 * plane + at];
-        p = make_int4(muldiv255(obj[at], a), muldiv255(obj[plane + at], a),
-                      muldiv255(obj[2 * plane + at], a), a);
+    __syncthreads();
+    // the quantized taps, one window per warp at a time, lanes over taps
+    for (int e = warp; e < resample::TX + resample::TY; e += resample::WARPS) {
+      const bool horiz = e < resample::TX;
+      const int c = horiz ? e : e - resample::TX;
+      const int lo = horiz ? w.hlo[c] : w.vlo[c], hi = horiz ? w.hhi[c] : w.vhi[c];
+      const int off = horiz ? w.hoff[c] : w.voff[c], cap = horiz ? cap_h : cap_v;
+      int* dst = horiz ? coef_h : coef_v;
+      const Axis ax = horiz ? axh : axv;
+      for (int i = lo + lane; i < hi && off + (i - lo) < cap; i += 32) {
+        dst[off + (i - lo)] = coeff(ax, s_center[e], s_wsum[e], lo, hi, i);
       }
-      p_s[r][c] = p;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int jj = 0; jj < TILE_K; ++jj) {
-      const int w = w_s[tx][jj];
-      const int4 p = p_s[ty][jj];
-      a0 += w * p.x;
-      a1 += w * p.y;
-      a2 += w * p.z;
-      a3 += w * p.w;
-    }
-    __syncthreads();
   }
-  const int ox = ox0 + tx, y = y0 + ty;
-  if (ox < mw && y < ph) {
-    const size_t tplane = (size_t)ph * mw;
-    uint8_t* t = tmp + (size_t)bk * 4 * tplane + (size_t)y * mw + ox;
-    t[0] = (uint8_t)clip8(a0);
-    t[tplane] = (uint8_t)clip8(a1);
-    t[2 * tplane] = (uint8_t)clip8(a2);
-    t[3 * tplane] = (uint8_t)clip8(a3);
-  }
-}
+};
 
-// (2) res[b,k,oy,ox] = unpremul(clip8(sum_i kv[oy,i] * tmp[b,k,:,i,ox])),
-// or the object's own pixel when `same` is set.
-// Block: 32 output columns x 8 output rows of one (b, k).
-// grid (B*N, ceil(mw/32), ceil(mh/8)).
-__global__ void __launch_bounds__(THREADS)
-v3_vpass(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
-         const uint8_t* __restrict__ tmp, uchar4* __restrict__ res, int Bo,
-         int N, int ph, int pw, int mh, int mw) {
+// (1) grid (B*N, ceil(mw/TX), ceil(mh/TY)): one tile of one placement,
+// resampled into res (or the object's own pixels where `same` is set).
+__global__ void __launch_bounds__(resample::THREADS, 3)
+v3_resample(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
+            uchar4* __restrict__ res, int Bo, int N, int ph, int pw, int mh, int mw,
+            int cap_h, int cap_v, int vec) {
   const int bk = blockIdx.x;
   const Meta m = load_meta(meta, bk, ph, pw, mh, mw);
-  const int ox0 = blockIdx.y * TILE_X, oy0 = blockIdx.z * TILE_Y;
+  const int ox0 = blockIdx.y * resample::TX, oy0 = blockIdx.z * resample::TY;
   if (m.valid <= 0 || ox0 >= m.out_w || oy0 >= m.out_h) return;  // uniform
   const int b = bk / N, k = bk - b * N;
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TILE_X + tx;
-  const int ox = ox0 + tx, oy = oy0 + ty;
-  const bool live = ox < m.out_w && oy < m.out_h;
+  const size_t plane = (size_t)ph * pw;
+  const resample::PlanarSrc src{objects, ((size_t)(Bo == 1 ? 0 : b) * N + k) * 4 * plane,
+                                plane, pw, vec != 0};
   uchar4* out = res + (size_t)bk * mh * mw;
-
   if (m.same > 0) {  // Pillow's plain copy: out == in
-    if (live) {
-      const size_t plane = (size_t)ph * pw;
-      const uint8_t* obj =
-          objects + ((size_t)(Bo == 1 ? 0 : b) * N + k) * 4 * plane;
-      uchar4 v = make_uchar4(0, 0, 0, 0);
-      if (oy < ph && ox < pw) {
-        const size_t at = (size_t)oy * pw + ox;
-        v = make_uchar4(obj[at], obj[plane + at], obj[2 * plane + at],
-                        obj[3 * plane + at]);
-      }
-      out[(size_t)oy * mw + ox] = v;
-    }
+    resample::copy_tile(src, out, mw, ph, pw, m.out_h, m.out_w, ox0, oy0);
     return;
   }
-
-  __shared__ float r_center[TILE_Y], r_wsum[TILE_Y];
-  __shared__ int r_lo[TILE_Y], r_hi[TILE_Y];
-  __shared__ int w_s[TILE_Y][TILE_K];
-  __shared__ int t_s[4][TILE_K][TILE_X];
-  __shared__ int s_span[2];
-
-  const Axis ax = axis_params(m.in_h, m.out_h);
-  if (ty == 0) {
-    Row r;
-    r.lo = r.hi = 0;
-    if (tx < TILE_Y) {
-      r = row_params(ax, oy0 + tx, m.out_h);
-      r_center[tx] = r.center;
-      r_wsum[tx] = r.wsum;
-      r_lo[tx] = r.lo;
-      r_hi[tx] = r.hi;
-    }
-    int lo = r.hi > r.lo ? r.lo : 0x7fffffff, hi = r.hi > r.lo ? r.hi : 0;
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    }
-    if (tx == 0) {
-      s_span[0] = lo;
-      s_span[1] = hi;
-    }
-  }
+  __shared__ resample::TileWindows win;
+  extern __shared__ uint32_t smem[];
+  int* coef = reinterpret_cast<int*>(smem + resample::TILE_SMEM_BYTES / 4);
+  V3Tables tab{axis_params(m.in_w, m.out_w), axis_params(m.in_h, m.out_h), m.out_w, m.out_h,
+               coef, coef + cap_h, cap_h, cap_v};
+  tab.prepare(win, ox0, oy0);
   __syncthreads();
-  const int ilo = s_span[0], ihi = s_span[1];
-
-  const size_t tplane = (size_t)ph * mw;
-  const uint8_t* tp = tmp + (size_t)bk * 4 * tplane;
-  int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-  for (int i0 = ilo; i0 < ihi; i0 += TILE_K) {
-    {
-      const int r = tid / TILE_K, c = tid - r * TILE_K;
-      w_s[r][c] = coeff(ax, r_center[r], r_wsum[r], r_lo[r], r_hi[r], i0 + c);
-    }
-    for (int e = tid; e < 4 * TILE_K * TILE_X; e += THREADS) {
-      const int ch = e / (TILE_K * TILE_X);
-      const int rem = e - ch * (TILE_K * TILE_X);
-      const int r = rem / TILE_X, c = rem - r * TILE_X;
-      const int gi = i0 + r, gox = ox0 + c;
-      // rows past the union carry zero coefficients; reading them is safe
-      t_s[ch][r][c] = (gi < ph && gox < mw) ? tp[ch * tplane + (size_t)gi * mw + gox] : 0;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int ii = 0; ii < TILE_K; ++ii) {
-      const int w = w_s[ty][ii];
-      a0 += w * t_s[0][ii][tx];
-      a1 += w * t_s[1][ii][tx];
-      a2 += w * t_s[2][ii][tx];
-      a3 += w * t_s[3][ii][tx];
-    }
-    __syncthreads();
-  }
-  if (live) {
-    out[(size_t)oy * mw + ox] =
-        pillow::unpremultiply(clip8(a0), clip8(a1), clip8(a2), clip8(a3));
-  }
+  resample::resample_tile(src, resample::SharedTaps{coef, coef + cap_h, &win}, win, smem, out,
+                          mw, m.out_h, m.out_w, ox0, oy0);
 }
 
-// (3) alpha-over in z-order. Block: 32 x 8 pixels of object k's box on
-// canvas b; a pixel is handled here only when no later object covers it.
-// grid (B*N, ceil(mw/32), ceil(mh/8)).
-__global__ void __launch_bounds__(THREADS)
-v3_blend(int* __restrict__ plane, const int* __restrict__ meta,
-         const uchar4* __restrict__ res, int N, int hp, int wp, int ph,
-         int pw, int mh, int mw) {
-  const int bk = blockIdx.x;
-  const Meta m = load_meta(meta, bk, ph, pw, mh, mw);
-  const int c = blockIdx.y * TILE_X + threadIdx.x;
-  const int r = blockIdx.z * TILE_Y + threadIdx.y;
-  if (m.valid <= 0 || c >= m.out_w || r >= m.out_h) return;
-  const int x = m.x1 + c, y = m.y1 + r;
-  if (x < 0 || y < 0 || x >= wp || y >= hp) return;  // cut at the plane edge
-  const int b = bk / N, k = bk - b * N;
-  for (int k2 = k + 1; k2 < N; ++k2) {
-    if (covers(load_meta(meta, b * N + k2, ph, pw, mh, mw), y, x)) return;
+// K2's placement rectangles, from the meta: the box at its origin, 0 when
+// the placement is not valid.
+struct V3Rects {
+  const int* __restrict__ meta;
+  int mh, mw;
+  __device__ __forceinline__ int4 get(int bk) const {
+    const int* r = meta + (size_t)bk * META;
+    const bool valid = r[5] > 0;
+    return make_int4(r[0] + r[2], r[1] + r[3], valid ? clampi(r[9], mw) : 0,
+                     valid ? clampi(r[8], mh) : 0);
   }
-  uchar4* px = reinterpret_cast<uchar4*>(plane) + ((size_t)b * hp + y) * wp + x;
-  uchar4 d = *px;
-  for (int k2 = 0; k2 <= k; ++k2) {
-    const Meta m2 = load_meta(meta, b * N + k2, ph, pw, mh, mw);
-    if (!covers(m2, y, x)) continue;
-    d = alpha_over(d, res[((size_t)(b * N + k2) * mh + (y - m2.y1)) * mw + (x - m2.x1)]);
-  }
-  *px = d;
-}
+};
 
 }  // namespace
 
-// Launches the three kernels for B canvases (one chunk of the wrapper's
+// Launches K2's two kernels for B canvases (one chunk of the wrapper's
 // batch); pointers are already offset to the chunk.
-extern "C" int fused_v3_launch(void* plane, const void* objects,
-                               const void* meta, void* tmp, void* res, int B,
-                               int Bo, int N, int hp, int wp, int ph, int pw,
-                               int mh, int mw, void* stream) {
+extern "C" int fused_v3_launch(void* plane, const void* objects, const void* meta, void* res,
+                               int B, int Bo, int N, int hp, int wp, int ph, int pw, int mh,
+                               int mw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(TILE_X, TILE_Y);
   const unsigned bn = (unsigned)B * (unsigned)N;
-  const unsigned tiles_x = (unsigned)((mw + TILE_X - 1) / TILE_X);
-  v3_hpass<<<dim3(bn, tiles_x, (ph + TILE_Y - 1) / TILE_Y), block, 0, s>>>(
-      static_cast<const uint8_t*>(objects), static_cast<const int*>(meta),
-      static_cast<uint8_t*>(tmp), Bo, N, ph, pw, mh, mw);
-  cudaError_t err = cudaGetLastError();
+  const int cap_h = resample::coeff_cap(pw, resample::TX), cap_v = resample::coeff_cap(ph, resample::TY);
+  const int smem = resample::TILE_SMEM_BYTES + 4 * (cap_h + cap_v);
+  cudaError_t err = resample::allow_smem(v3_resample, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_out(bn, tiles_x, (mh + TILE_Y - 1) / TILE_Y);
-  v3_vpass<<<grid_out, block, 0, s>>>(
+  const int vec = ((size_t)ph * pw) % 4 == 0 && reinterpret_cast<uintptr_t>(objects) % 4 == 0;
+  const dim3 grid_r(bn, (mw + resample::TX - 1) / resample::TX,
+                    (mh + resample::TY - 1) / resample::TY);
+  v3_resample<<<grid_r, resample::THREADS, smem, s>>>(
       static_cast<const uint8_t*>(objects), static_cast<const int*>(meta),
-      static_cast<const uint8_t*>(tmp), static_cast<uchar4*>(res), Bo, N, ph,
-      pw, mh, mw);
+      static_cast<uchar4*>(res), Bo, N, ph, pw, mh, mw, cap_h, cap_v, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  v3_blend<<<grid_out, block, 0, s>>>(
-      static_cast<int*>(plane), static_cast<const int*>(meta),
-      static_cast<const uchar4*>(res), N, hp, wp, ph, pw, mh, mw);
+  const dim3 grid_b(bn, (mw + box_blend::TILE - 1) / box_blend::TILE,
+                    (mh + box_blend::TILE - 1) / box_blend::TILE);
+  box_blend::box_blend_kernel<<<grid_b, box_blend::THREADS, box_blend::smem_bytes(N), s>>>(
+      static_cast<uchar4*>(plane), static_cast<const uchar4*>(res),
+      V3Rects{static_cast<const int*>(meta), mh, mw}, N, hp, wp, mh, mw);
   return (int)cudaGetLastError();
 }

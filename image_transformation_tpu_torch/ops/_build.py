@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -38,6 +39,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _LIB: Optional[ctypes.CDLL] = None
 #: seconds the last build took in this process (0.0 when the .so existed)
 last_build_seconds = 0.0
+#: ptxas's report of the last verbose build in this process ("" otherwise)
+last_build_report = ""
 
 
 def sources() -> List[Path]:
@@ -72,7 +75,7 @@ def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu unless the hashed library exists; returns its path.
     ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report
     (registers, shared memory and spills of each kernel)."""
-    global last_build_seconds
+    global last_build_seconds, last_build_report
     out = library_path()
     if out.is_file():
         last_build_seconds = 0.0
@@ -112,9 +115,35 @@ def build(verbose: bool = False) -> Path:
             )
     last_build_seconds = time.perf_counter() - t0
     if verbose:
-        print("".join(reports), end="")
+        last_build_report = "".join(reports)
+        print(last_build_report, end="")
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
+
+
+def ptxas_usage(report: str) -> dict:
+    """Per kernel of a ``-Xptxas -v`` report: {mangled name: dict(registers,
+    smem (static bytes), stack, spill_stores, spill_loads)}."""
+    usage, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = dict(registers=0, smem=0, stack=0, spill_stores=0, spill_loads=0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            usage[name]["smem"] = int(m.group(1)) if m else 0
+    return usage
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:

@@ -53,6 +53,7 @@ are RGBA; the kernels update it in place where JAX donates it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Sequence, Tuple
@@ -80,8 +81,43 @@ FLAG_IDENTITY = 2
 LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "restore_windows": 0, "window_blend": 0,
             "window_blend_planar": 0, "window_blend_stage": 0}
 
-_MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z, which carries B*N
-_MAX_GRID_X = (1 << 31) - 1  # CUDA's limit on gridDim.x
+_MAX_GRID_X = (1 << 31) - 1  # CUDA's limit on gridDim.x, which carries B*N
+_MAX_GRID_Z = 65535  # CUDA's limit on gridDim.y and gridDim.z
+#: shared memory of the resample core (csrc/resample.cuh): the source patch
+#: (64 rows of 128 + 1 packed pixels) and the H result (32 x (64 + 1) packed
+#: pixels, or a wide tile's H sums, 32 x 32 int4)
+_RESAMPLE_SMEM_BYTES = 4 * 64 * 129 + 16 * 32 * 32
+#: dynamic shared memory a resample block may take on Hopper (227 KB less its
+#: static shared memory; csrc/resample.cuh:MAX_DYNAMIC_SMEM)
+_MAX_SMEM_BYTES = 232448 - 2048
+_BOUNDS_ROWS = 32  # table rows per block of K1's bounds launch
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_layout(sizes: Tuple[int, ...]) -> Tuple[int, Tuple[int, ...]]:
+    """(total bytes, region offsets) of regions of ``sizes`` bytes, each
+    starting on a 256-byte boundary."""
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += _round_up(max(int(n), 1), 256)
+    return total, tuple(offsets)
+
+
+def _scratch(device, sizes):
+    """One uninitialised u8 buffer on ``device`` holding regions of ``sizes``
+    bytes: (buffer, region addresses). One allocation per call instead of
+    one per region."""
+    total, offsets = _scratch_layout(tuple(sizes))
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    return buf, [base + o for o in offsets]
+
+
+def _raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle, without
+    building a ``torch.cuda.Stream`` (a K1 call at B=1 is host-bound)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def reset_launch_counts() -> None:
@@ -129,38 +165,48 @@ def fused_tables_prep(
     return kh, kv, boxes.astype(np.int32), flags
 
 
+_K1_DTYPES = (torch.uint8, torch.uint8, torch.int32, torch.int32, torch.int32, torch.uint8)
+
+
 def _check_args(canvas, objects, kh, kv, boxes, flags) -> None:
     """Raise on anything K1 does not take: device, dtype, shape, layout."""
-    named = dict(canvas=canvas, objects=objects, kh=kh, kv=kv, boxes=boxes,
-                 flags=flags)
-    dtypes = dict(canvas=torch.uint8, objects=torch.uint8, kh=torch.int32,
-                  kv=torch.int32, boxes=torch.int32, flags=torch.uint8)
-    for name, t in named.items():
+    args = (canvas, objects, kh, kv, boxes, flags)
+    u8, i32 = torch.uint8, torch.int32
+    try:  # the common case in few operations: a kernel call at B=1 is host-bound
+        dev = canvas.device
+        fine = (canvas.dtype is u8 and objects.dtype is u8 and kh.dtype is i32
+                and kv.dtype is i32 and boxes.dtype is i32 and flags.dtype is u8
+                and objects.device == dev and kh.device == dev and kv.device == dev
+                and boxes.device == dev and flags.device == dev
+                and canvas.is_contiguous() and objects.is_contiguous()
+                and kh.is_contiguous() and kv.is_contiguous()
+                and boxes.is_contiguous() and flags.is_contiguous())
+    except AttributeError:
+        fine = False
+    names = ("canvas", "objects", "kh", "kv", "boxes", "flags")
+    for name, t, dtype in ([] if fine else zip(names, args, _K1_DTYPES)):
         if not torch.is_tensor(t):
             raise TypeError(f"{name} must be a torch.Tensor")
-        if t.dtype != dtypes[name]:
-            raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != canvas.device:
-            raise ValueError(
-                f"{name} is on {t.device}, canvas on {canvas.device}"
-            )
+            raise ValueError(f"{name} is on {t.device}, canvas on {canvas.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if canvas.dim() != 4 or canvas.shape[3] != 4:
-        raise ValueError(f"canvas must be [B, H, W, 4], got {tuple(canvas.shape)}")
-    B = canvas.shape[0]
-    if objects.dim() != 5 or objects.shape[4] != 4 or objects.shape[0] not in (1, B):
-        raise ValueError(
-            f"objects must be [1 or B, N, ph, pw, 4], got {tuple(objects.shape)}"
-        )
-    _, N, ph, pw, _ = objects.shape
-    if kh.dim() != 4 or tuple(kh.shape[:2]) != (B, N) or kh.shape[3] != pw:
-        raise ValueError(f"kh must be [B, N, mw, pw], got {tuple(kh.shape)}")
-    if kv.dim() != 4 or tuple(kv.shape[:2]) != (B, N) or kv.shape[3] != ph:
-        raise ValueError(f"kv must be [B, N, mh, ph], got {tuple(kv.shape)}")
-    if tuple(boxes.shape) != (B, N, 4):
+    cs, osh, khs, kvs = canvas.shape, objects.shape, kh.shape, kv.shape
+    if len(cs) != 4 or cs[3] != 4:
+        raise ValueError(f"canvas must be [B, H, W, 4], got {tuple(cs)}")
+    B = cs[0]
+    if len(osh) != 5 or osh[4] != 4 or osh[0] not in (1, B):
+        raise ValueError(f"objects must be [1 or B, N, ph, pw, 4], got {tuple(osh)}")
+    _, N, ph, pw, _ = osh
+    if len(khs) != 4 or khs[0] != B or khs[1] != N or khs[3] != pw:
+        raise ValueError(f"kh must be [B, N, mw, pw], got {tuple(khs)}")
+    if len(kvs) != 4 or kvs[0] != B or kvs[1] != N or kvs[3] != ph:
+        raise ValueError(f"kv must be [B, N, mh, ph], got {tuple(kvs)}")
+    if boxes.shape != (B, N, 4):
         raise ValueError(f"boxes must be [B, N, 4], got {tuple(boxes.shape)}")
-    if tuple(flags.shape) != (B, N):
+    if flags.shape != (B, N):
         raise ValueError(f"flags must be [B, N], got {tuple(flags.shape)}")
 
 
@@ -192,8 +238,9 @@ def fused_compose_reference(
 
 
 _ARGTYPES = {
-    "fused_compose_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
-    "fused_v3_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "fused_compose_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "fused_compose_bounds_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "fused_v3_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     "restore_windows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "window_blend_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "window_blend_planar_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
@@ -201,15 +248,20 @@ _ARGTYPES = {
 }
 
 
+_ENTRIES = {}
+
+
 def _kernel_entry(name: str):
     """The C entry ``name`` of the kernels' library (built on first use),
     with its argument types set: pointers and the stream as c_void_p."""
-    from ._build import load_library
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        from ._build import load_library
 
-    fn = getattr(load_library(), name)
-    if fn.argtypes != _ARGTYPES[name]:
+        fn = getattr(load_library(), name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
     return fn
 
 
@@ -244,25 +296,82 @@ def fused_compose(
     mw, mh = kh.shape[2], kv.shape[2]
     if min(B, H, W, N, ph, pw, mh, mw) == 0:
         return canvas
-    if B * N > _MAX_GRID_Z:
-        raise ValueError(f"B*N = {B * N} exceeds the kernel's grid limit {_MAX_GRID_Z}")
     if canvas.data_ptr() % 4 or objects.data_ptr() % 4:
         raise ValueError("canvas and objects must be 4-byte aligned (uchar4 pixels)")
     fn = _kernel_entry("fused_compose_launch")
     dev = canvas.device
-    tmp = torch.empty((B, N, 4, ph, mw), dtype=torch.uint8, device=dev)
-    res = torch.empty((B, N, mh, mw, 4), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    S = -(-max(mh, mw) // _BOUNDS_ROWS)
+    # one scratch buffer: table windows, extent parts, rectangles, resampled objects
+    scratch, (hwin, vwin, part, rects, res) = _scratch(
+        dev, (8 * B * N * mw, 8 * B * N * mh, 8 * B * N * S, 16 * B * N, 4 * B * N * mh * mw))
+    # the device guard only where it changes the device (a call at B=1 is host-bound)
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         rc = fn(
             canvas.data_ptr(), objects.data_ptr(), kh.data_ptr(), kv.data_ptr(),
-            boxes.data_ptr(), flags.data_ptr(), tmp.data_ptr(), res.data_ptr(),
-            B, Bo, N, H, W, ph, pw, mh, mw, stream,
+            boxes.data_ptr(), flags.data_ptr(), hwin, vwin, part, rects, res,
+            B, Bo, N, H, W, ph, pw, mh, mw, _raw_stream(dev),
         )
+    del scratch  # freed to the caching allocator, in stream order
     if rc != 0:
         raise RuntimeError(f"fused_compose: kernel launch failed with CUDA error {rc}")
     LAUNCHES["fused_compose"] += 1
     return canvas
+
+
+def k1_tap_windows_reference(kh: torch.Tensor, kv: torch.Tensor, boxes: torch.Tensor,
+                             flags: torch.Tensor, canvas_hw: Tuple[int, int]):
+    """Plain version of K1's bounds launch: (hwin i32 [B, N, mw, 2], vwin
+    i32 [B, N, mh, 2], extent i32 [B, N, 2]). A window is the first and
+    one-past-last nonzero tap of a table row ((0, 0) for a row of zeros); an
+    extent (w, h) is one past the last non-empty column and row, the pad
+    (min(pw, mw), min(ph, mh)) for an identity placement, and (0, 0) for a
+    dropped one."""
+    def windows(t):
+        nz = t != 0
+        idx = torch.arange(t.shape[-1], device=t.device)
+        lo = torch.where(nz, idx, t.shape[-1]).amin(-1)
+        hi = torch.where(nz, idx + 1, 0).amax(-1)
+        live = nz.any(-1)
+        rows = torch.arange(1, t.shape[-2] + 1, device=t.device)
+        extent = torch.where(live, rows, 0).amax(-1)
+        return torch.stack([lo * live, hi], -1).to(torch.int32), extent
+
+    hwin, ext_w = windows(kh)
+    vwin, ext_h = windows(kv)
+    ident = (flags & FLAG_IDENTITY) > 0
+    ext_w = torch.where(ident, min(kh.shape[2], kh.shape[3]), ext_w)
+    ext_h = torch.where(ident, min(kv.shape[2], kv.shape[3]), ext_h)
+    h_c, w_c = canvas_hw
+    x1, y1 = boxes[..., 0].to(torch.int64), boxes[..., 1].to(torch.int64)
+    live = ((flags & FLAG_LIVE) > 0) & (x1 >= 0) & (y1 >= 0) & (x1 < w_c) & (y1 < h_c)
+    return hwin, vwin, (torch.stack([ext_w, ext_h], -1) * live[..., None]).to(torch.int32)
+
+
+def k1_tap_windows(kh: torch.Tensor, kv: torch.Tensor, boxes: torch.Tensor,
+                   flags: torch.Tensor, canvas_hw: Tuple[int, int]):
+    """K1's bounds launch alone, on the card (for the card tests; not
+    counted in ``LAUNCHES``). Returns what :func:`k1_tap_windows_reference`
+    returns, the extent reduced over the launch's row slices; windows of
+    dropped and identity placements are not written (undefined)."""
+    if kh.device.type != "cuda":
+        raise ValueError(f"k1_tap_windows runs on cuda, not {kh.device}")
+    B, N, mw, pw = kh.shape
+    mh, ph = kv.shape[2], kv.shape[3]
+    S = -(-max(mh, mw) // _BOUNDS_ROWS)
+    dev = kh.device
+    hwin = torch.empty((B, N, mw, 2), dtype=torch.int32, device=dev)
+    vwin = torch.empty((B, N, mh, 2), dtype=torch.int32, device=dev)
+    part = torch.empty((B, N, 2, S), dtype=torch.int32, device=dev)
+    fn = _kernel_entry("fused_compose_bounds_launch")
+    with torch.cuda.device(dev):
+        rc = fn(kh.data_ptr(), kv.data_ptr(), boxes.data_ptr(), flags.data_ptr(),
+                hwin.data_ptr(), vwin.data_ptr(), part.data_ptr(), B, N,
+                int(canvas_hw[0]), int(canvas_hw[1]), ph, pw, mh, mw,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"k1_tap_windows: kernel launch failed with CUDA error {rc}")
+    return hwin, vwin, part.amax(-1)
 
 
 # ------------------ gen-3 geometry and packing (plain torch) ------------------
@@ -270,8 +379,23 @@ def fused_compose(
 #: Rec.709 luminance weights of the run statistic
 REC709 = (0.2126, 0.7152, 0.0722)
 _META_COLS = 10  # ws_x ws_y dx dy same valid in_h in_w out_h out_w
-#: u8 scratch a K2 launch may hold; the wrapper walks larger batches in chunks
+#: u8 scratch (the resampled objects) a K2 launch may hold; the wrapper walks
+#: larger batches in chunks
 _V3_SCRATCH_BYTES = 1 << 30
+
+
+def _coeff_cap(in_max: int, lanes: int) -> int:
+    """Entries of a resample tile's compact tap array for one axis
+    (csrc/resample.cuh:coeff_cap): ``lanes`` windows over at most ``in_max``
+    taps, each at most 6 * max(in/out, 1) + 2 taps."""
+    return min(lanes * in_max, 6 * in_max + 8 * lanes)
+
+
+def _resample_smem_bytes(ph: int, pw: int) -> int:
+    """Dynamic shared memory of one K1 or K2 resample block: the core's
+    patch and H result, and the tile's taps for a 32 x 32 output tile (K1
+    leaves the taps out where this passes ``_MAX_SMEM_BYTES``)."""
+    return _RESAMPLE_SMEM_BYTES + 4 * (_coeff_cap(pw, 32) + _coeff_cap(ph, 32))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -527,11 +651,13 @@ def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
     mh, mw = (int(v) for v in out_max_hw)
     if min(B, N, hp, wp, ph, pw) == 0:
         return plane
-    per_canvas = N * (4 * ph * mw + 4 * mh * mw)
-    chunk = max(1, min(B, _V3_SCRATCH_BYTES // per_canvas))
+    smem = _resample_smem_bytes(ph, pw)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(f"fused_v3: objects padded to {ph}x{pw} need {smem} bytes of shared "
+                         f"memory per block, more than the card's {_MAX_SMEM_BYTES}")
+    chunk = max(1, min(B, _V3_SCRATCH_BYTES // (N * 4 * mh * mw)))
     fn = _kernel_entry("fused_v3_launch")
     dev = plane.device
-    tmp = torch.empty((chunk, N, 4, ph, mw), dtype=torch.uint8, device=dev)
     res = torch.empty((chunk, N, mh, mw, 4), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -539,7 +665,7 @@ def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
             nb = min(chunk, B - b0)
             rc = fn(
                 plane[b0].data_ptr(), objs_p[0 if Bo == 1 else b0].data_ptr(),
-                meta[b0].data_ptr(), tmp.data_ptr(), res.data_ptr(),
+                meta[b0].data_ptr(), res.data_ptr(),
                 nb, Bo, N, hp, wp, ph, pw, mh, mw, stream,
             )
             if rc != 0:

@@ -140,6 +140,40 @@ def _trunc_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, torch.floor(x), -torch.floor(-x))
 
 
+def _window_bounds(in_size, out_size, out_max: int, method: str, out_offset):
+    """The window geometry of every output row, in the JAX function's f32 op
+    order: (in_f, out_f, o, center, xmin, xmax, inv_fs), each row's values
+    shaped [..., out_max, 1] (``in_f``, ``out_f``, ``inv_fs`` [...])."""
+    in_f = torch.as_tensor(in_size).to(_F32)
+    dev = in_f.device
+    out_f = torch.clamp(torch.as_tensor(out_size, device=dev).to(_F32), min=1.0)
+    off = torch.as_tensor(out_offset, device=dev).to(_F32)
+    scale = in_f / out_f
+    fs = torch.clamp(scale, min=1.0)
+    support = _f32(_SUPPORT[method]) * fs
+    col = (..., None, None)
+    o = torch.arange(out_max, dtype=_F32, device=dev)[:, None] - off[col]
+    center = (o + 0.5) * scale[col]
+    xmin = torch.clamp(_trunc_f32(center - support[col] + 0.5), min=0.0)
+    xmin = torch.minimum(xmin, in_f[col])
+    xmax = torch.clamp(_trunc_f32(center + support[col] + 0.5), min=0.0)
+    xmax = torch.minimum(xmax, in_f[col])
+    return in_f, out_f, o, center, xmin, xmax, _f32(1.0) / fs
+
+
+def row_windows(in_size, out_size, out_max: int, method: str = "lanczos",
+                out_offset=0) -> torch.Tensor:
+    """int64 [..., out_max, 2]: each output row's tap window [lo, hi) as
+    :func:`resample_coeff_matrix` computes it, with rows outside
+    [out_offset, out_offset + out_size) empty (hi = lo). Every nonzero of
+    :func:`build_coeffs_traced` lies inside its row's window; the plain
+    counterpart of the CUDA kernel's ``row_params`` (csrc/fused_v3.cu)."""
+    _, out_f, o, _, xmin, xmax, _ = _window_bounds(in_size, out_size, out_max, method,
+                                                   out_offset)
+    live = (o >= 0) & (o < out_f[..., None, None])
+    return torch.cat([xmin, torch.where(live, xmax, xmin)], -1).to(torch.int64)
+
+
 def resample_coeff_matrix(
     in_size,
     out_size,
@@ -153,29 +187,17 @@ def resample_coeff_matrix(
 
     Rows outside [out_offset, out_offset + out_size) and taps >= in_size
     are zero. Op order is the JAX function's: ``center = (o + 0.5) * scale``,
-    window bounds by truncation, ``w / wsum``, then the row mask. ``wsum``
-    adds the taps one by one in index order (a loop over taps, vectorised
-    over rows), which is the order the CUDA kernel uses.
+    window bounds by truncation (:func:`_window_bounds`), ``w / wsum``, then
+    the row mask. ``wsum`` adds the taps one by one in index order (a loop
+    over taps, vectorised over rows), which is the order the CUDA kernel uses.
     """
     filt = _FILTERS[method]
-    in_f = torch.as_tensor(in_size).to(_F32)
+    in_f, out_f, o, center, xmin, xmax, inv_fs = _window_bounds(
+        in_size, out_size, out_max, method, out_offset)
     dev = in_f.device
-    out_f = torch.clamp(torch.as_tensor(out_size, device=dev).to(_F32), min=1.0)
-    off = torch.as_tensor(out_offset, device=dev).to(_F32)
-    scale = in_f / out_f
-    fs = torch.clamp(scale, min=1.0)
-    support = _f32(_SUPPORT[method]) * fs
-    inv_fs = _f32(1.0) / fs
-    lead = scale.shape
+    lead = torch.broadcast_shapes(in_f.shape, out_f.shape)
     col = (..., None, None)
-
-    o = torch.arange(out_max, dtype=_F32, device=dev)[:, None] - off[..., None, None]
     i = torch.arange(in_max, dtype=_F32, device=dev)[None, :]
-    center = (o + 0.5) * scale[col]
-    xmin = torch.clamp(_trunc_f32(center - support[col] + 0.5), min=0.0)
-    xmin = torch.minimum(xmin, in_f[col])
-    xmax = torch.clamp(_trunc_f32(center + support[col] + 0.5), min=0.0)
-    xmax = torch.minimum(xmax, in_f[col])
     window = (i >= xmin) & (i < xmax)
     w = filt((i - center + 0.5) * inv_fs[col]) * window.to(_F32)
     w = w.expand(*lead, out_max, in_max)

@@ -251,3 +251,156 @@ def test_cuda_kernel_fuzz_matches_plain_version():
                 *(torch.from_numpy(a).cuda() for a in tables),
             ).cpu().numpy()
             assert np.array_equal(got, plain), (seed, shared)
+
+
+def _window_case(seed):
+    """Random objects on pads up to 300x400 (so the resample core walks its
+    source patch in chunks of rows and columns), with 1-px boxes (a window
+    spanning the whole source row), boxes equal to the object (identity),
+    upscales, dropped origins, boxes hanging off the canvas edge, and every
+    placement of canvas 0 at one origin (overlaps, for z-order)."""
+    rng = np.random.default_rng(1000 + seed)
+    b, n = int(rng.integers(1, 4)), int(rng.integers(2, 6))
+    ph, pw = int(rng.integers(40, 300)), int(rng.integers(60, 400))
+    h, w = int(rng.integers(40, 260)), int(rng.integers(40, 420))
+    mh, mw = ph + int(rng.integers(0, 40)), pw + int(rng.integers(0, 40))
+    objs = rng.integers(0, 256, (b, n, ph, pw, 4), dtype=np.uint8)
+    hw = np.stack([rng.integers(1, ph + 1, (b, n)), rng.integers(1, pw + 1, (b, n))], -1)
+    for bi in range(b):
+        for k in range(n):
+            objs[bi, k, hw[bi, k, 0]:] = 0
+            objs[bi, k, :, hw[bi, k, 1]:] = 0
+    boxes = np.zeros((b, n, 4), np.int64)
+    for bi in range(b):
+        for k in range(n):
+            oh, ow = (int(v) for v in hw[bi, k])
+            mode = int(rng.integers(0, 5))
+            bh, bw = {0: (oh, ow), 1: (1, 1), 2: (int(rng.integers(1, mh + 1)),
+                                                  int(rng.integers(1, mw + 1)))}.get(
+                mode, (max(1, int(oh * rng.uniform(0.05, 1))), max(1, int(ow * rng.uniform(0.05, 1)))))
+            x1, y1 = int(rng.integers(-3, w + 2)), int(rng.integers(-3, h + 2))
+            if bi == 0:
+                x1, y1 = 2, 3
+            boxes[bi, k] = (x1, y1, x1 + bw, y1 + bh)
+    canvases = rng.integers(0, 256, (b, h, w, 4), dtype=np.uint8)
+    canvases[..., 3] = rng.choice([0, 90, 255], (b, h, w))
+    tables = fused_tables_prep(hw, boxes, (h, w), (ph, pw), (mh, mw))
+    return canvases, objs, hw, boxes, tables
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_tap_windows_match_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+    for seed in range(12):
+        canvases, objs, _, _, tables = _window_case(seed)
+        plain = fused_compose(
+            torch.from_numpy(canvases.copy()), torch.from_numpy(objs),
+            *(torch.from_numpy(a) for a in tables),
+        ).numpy()
+        before = compose_kernels.LAUNCHES["fused_compose"]
+        got = fused_compose(
+            torch.from_numpy(canvases.copy()).cuda(), torch.from_numpy(objs).cuda(),
+            *(torch.from_numpy(a).cuda() for a in tables),
+        ).cpu().numpy()
+        assert compose_kernels.LAUNCHES["fused_compose"] == before + 1
+        assert np.array_equal(got, plain), seed
+
+
+@pytest.mark.cuda
+def test_cuda_bounds_launch_equals_the_tables_nonzeros():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1's bounds launch has no CPU mode")
+    for seed in range(6):
+        canvases, _, _, _, tables = _window_case(seed)
+        t = [torch.from_numpy(a) for a in tables]
+        # some random sparse tables too: windows the kernel must find exactly
+        rng = np.random.default_rng(seed)
+        t[0] = t[0] * torch.from_numpy(rng.random(t[0].shape) < 0.7).to(torch.int32)
+        hw_ref, vw_ref, ext_ref = compose_kernels.k1_tap_windows_reference(
+            *t, canvases.shape[1:3])
+        hw_k, vw_k, ext_k = (x.cpu() for x in compose_kernels.k1_tap_windows(
+            *(x.cuda() for x in t), canvases.shape[1:3]))
+        assert torch.equal(ext_k, ext_ref), seed
+        resampled = ((t[3] & FLAG_LIVE) > 0) & ((t[3] & FLAG_IDENTITY) == 0)
+        assert torch.equal(hw_k[resampled], hw_ref[resampled]), seed
+        assert torch.equal(vw_k[resampled], vw_ref[resampled]), seed
+
+
+@pytest.mark.cuda
+def test_cuda_traced_and_upscaling_tables_through_composite_batch_pallas():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+    from image_transformation_tpu_torch.ops.resize import build_coeffs_traced
+
+    for seed in range(4):
+        rng = np.random.default_rng(500 + seed)
+        b, n, ph, pw = 2, 3, int(rng.integers(8, 90)), int(rng.integers(8, 140))
+        mh, mw = 3 * ph, 3 * pw  # the envelope admits upscales
+        h, w = 2 * mh, 2 * mw
+        objs = rng.integers(0, 256, (b, n, ph, pw, 4), dtype=np.uint8)
+        hw = np.broadcast_to(np.array([ph, pw]), (b, n, 2)).copy()
+        out_h = rng.integers(1, mh + 1, (b, n))
+        out_w = rng.integers(1, mw + 1, (b, n))
+        xy = np.stack([rng.integers(-2, w, (b, n)), rng.integers(-2, h, (b, n))], -1)
+        boxes = np.concatenate([xy, xy + np.stack([out_w, out_h], -1)], -1)
+        kh = build_coeffs_traced(torch.from_numpy(hw[..., 1]), torch.from_numpy(out_w), pw, mw)
+        kv = build_coeffs_traced(torch.from_numpy(hw[..., 0]), torch.from_numpy(out_h), ph, mh)
+        canvases = torch.from_numpy(rng.integers(0, 256, (b, h, w, 4), dtype=np.uint8))
+        args = (torch.from_numpy(objs), hw, boxes, kh, kv)
+        plain = compose_kernels.composite_batch_pallas(canvases, *args)
+        got = compose_kernels.composite_batch_pallas(
+            canvases.cuda(), args[0].cuda(), hw, boxes, kh.cuda(), kv.cuda())
+        assert torch.equal(got.cpu(), plain), seed
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_runs_past_65535_placements():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+    rng = np.random.default_rng(3)
+    n, pattern, b = 4, 7, 16_500  # B*N = 66,000: past CUDA's gridDim.y/z limit
+    h, w, ph, pw = 12, 16, 5, 6
+    objs = rng.integers(0, 256, (1, n, ph, pw, 4), dtype=np.uint8)
+    hw = np.broadcast_to(np.array([ph, pw]), (b, n, 2))
+    base = rng.integers(-1, 10, (pattern, n, 2))
+    size = rng.integers(1, 9, (pattern, n, 2))
+    boxes_p = np.concatenate([base, base + size], -1)
+    boxes = boxes_p[np.arange(b) % pattern]
+    canvas = np.broadcast_to(rng.integers(0, 256, (h, w, 4), dtype=np.uint8), (b, h, w, 4))
+    tables = fused_tables_prep(hw, boxes, (h, w), (ph, pw), (ph + 2, pw + 2))
+    got = fused_compose(
+        torch.from_numpy(canvas.copy()).cuda(), torch.from_numpy(objs).cuda(),
+        *(torch.from_numpy(a).cuda() for a in tables),
+    ).cpu().numpy()
+    plain = fused_compose(
+        torch.from_numpy(canvas[:pattern].copy()), torch.from_numpy(objs),
+        *(torch.from_numpy(a[:pattern].copy()) for a in tables),
+    ).numpy()
+    assert np.array_equal(got, plain[np.arange(b) % pattern])
+
+
+@pytest.mark.cuda
+def test_cuda_dense_arbitrary_tables_match_plain_version():
+    """Tables no Pillow window gives: random dense rows (more taps than a
+    tile's compact arrays hold, so the kernel reads them from the rows) and
+    random empty rows (extents short of the envelope)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+    for seed in range(4):
+        rng = np.random.default_rng(900 + seed)
+        b, n, ph, pw, mh, mw = 2, 3, 40 + 10 * seed, 90, 70, 60
+        objs = rng.integers(0, 256, (b, n, ph, pw, 4), dtype=np.uint8)
+        # |w| <= 2^16 over <= 90 taps keeps every int32 sum exact
+        kh = rng.integers(-(1 << 14), 1 << 16, (b, n, mw, pw)).astype(np.int32)
+        kv = rng.integers(-(1 << 14), 1 << 16, (b, n, mh, ph)).astype(np.int32)
+        kh[rng.random((b, n, mw)) < 0.3] = 0
+        kv[rng.random((b, n, mh)) < 0.3] = 0
+        boxes = np.stack([rng.integers(-2, 100, (b, n)), rng.integers(-2, 80, (b, n))], -1)
+        boxes = np.concatenate([boxes, boxes + 5], -1).astype(np.int32)
+        flags = np.where(rng.random((b, n)) < 0.8, FLAG_LIVE, 0).astype(np.uint8)
+        canvases = rng.integers(0, 256, (b, 90, 120, 4), dtype=np.uint8)
+        args = [canvases, objs, kh, kv, boxes, flags]
+        plain = fused_compose(*(torch.from_numpy(a.copy()) for a in args)).numpy()
+        got = fused_compose(*(torch.from_numpy(a.copy()).cuda() for a in args)).cpu().numpy()
+        assert np.array_equal(got, plain), seed

@@ -126,3 +126,37 @@ def test_k3_and_reuse_chain_match_plain_version(cuda):
         torch.cuda.synchronize()
         assert ck.LAUNCHES["restore_windows"] == before + 1
         assert torch.equal(got.cpu(), want), seed
+
+
+@pytest.mark.cuda
+def test_k2_chunked_windows_and_overlaps_match_plain_version(cuda):
+    """Pads up to 300x420, so 1-px boxes (windows spanning the whole
+    source) and steep downscales walk the source patch in chunks of rows
+    and columns; every placement of canvas 0 at one origin (z-order)."""
+    for seed in range(8):
+        rng = np.random.default_rng(700 + seed)
+        B, N = int(rng.integers(1, 3)), int(rng.integers(2, 5))
+        ph, pw = int(rng.integers(64, 300)), int(rng.integers(129, 420))
+        H, W = int(rng.integers(64, 400)), int(rng.integers(64, 600))
+        objs = rng.integers(0, 256, (1, N, ph, pw, 4), dtype=np.uint8)
+        hw_row = np.stack([rng.integers(ph // 2, ph + 1, N), rng.integers(pw // 2, pw + 1, N)], -1)
+        for k in range(N):
+            objs[:, k, hw_row[k, 0]:] = 0
+            objs[:, k, :, hw_row[k, 1]:] = 0
+        hw = np.broadcast_to(hw_row, (B, N, 2)).copy()
+        boxes = np.zeros((B, N, 4), np.int64)
+        for b in range(B):
+            for k in range(N):
+                oh, ow = (int(v) for v in hw_row[k])
+                bh, bw = [(1, 1), (oh, ow), (max(1, oh // 9), max(1, ow // 7)),
+                          (int(rng.integers(1, oh + 1)), int(rng.integers(1, ow + 1)))][
+                    int(rng.integers(0, 4))]
+                x1, y1 = (3, 2) if b == 0 else (int(rng.integers(-5, W)), int(rng.integers(-5, H)))
+                boxes[b, k] = (x1, y1, x1 + bw, y1 + bh)
+        op = ck.planarize_objects(torch.from_numpy(objs))
+        bg = ck.pack_rgba_scalar((40, 60, 200, 255 if seed % 2 else 100))
+        plain = ck.render_solid_fused_v3_program(op, hw, boxes, (H, W), bg, pipelined=False)
+        got = ck.render_solid_fused_v3_program(
+            op.to(cuda), hw, torch.from_numpy(boxes).to(cuda), (H, W), bg, pipelined=False)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), plain), seed

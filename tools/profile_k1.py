@@ -5,7 +5,7 @@
 
 Run from the root of a checkout (it reuses chip_smoke.py's inputs). Prints:
 
-- per-launch device time of K1's three launches (H pass, V pass, blend),
+- per-launch device time of K1's three launches (bounds, resample, blend),
   from torch.profiler over ``REPS`` calls, at chip_smoke.py's two
   geometries (squarespace at 9:16 B=1, and 1080x1920 B=64 shared objects);
 - the host wall time of a warm ``ComposeEngine.compose`` at 9:16
@@ -32,7 +32,7 @@ from image_transformation_tpu_torch.parallel.sweep import random_downscale_boxes
 from image_transformation_tpu_torch.pipeline.engine import ComposeEngine
 
 REPS = 5
-KERNELS = ("hpass_kernel", "vpass_kernel", "blend_kernel")
+KERNELS = chip_smoke.K1_LAUNCHES  # (label, a substring of the kernel's name)
 
 
 def _device_us(evt) -> float:
@@ -54,16 +54,16 @@ def profile_launches(name, hw, batch, smi, device):
         for _ in range(REPS):
             fused_compose(canvas, objects, *tables)
         torch.cuda.synchronize()
-    per = {k: 0.0 for k in KERNELS}
+    per = {label: 0.0 for label, _ in KERNELS}
     for evt in prof.key_averages():
-        for k in KERNELS:
-            if k in evt.key:
-                per[k] += _device_us(evt) / REPS
+        for label, key in KERNELS:
+            if key in evt.key:
+                per[label] += _device_us(evt) / REPS
     total = sum(per.values())
     if total == 0:
         raise RuntimeError(f"{name}: the profiler saw no device time")
     parts = ", ".join(
-        f"{k.split('_')[0]} {us:.1f} us ({100 * us / total:.0f}%)" for k, us in per.items()
+        f"{label} {us:.1f} us ({100 * us / total:.0f}%)" for label, us in per.items()
     )
     print(f"[profile] {name}: canvas {hw[0]}x{hw[1]} B={batch}: {parts}; "
           f"sum {total:.1f} us per call, mean of {REPS} on {smi}")

@@ -7,7 +7,7 @@ Run from the root of a checkout (it reuses chip_smoke.py's device and build
 phases). Squarespace objects shared, 1080x1920 canvases, boxes from
 ``random_downscale_boxes`` seed 0, per-object static windows. Prints:
 
-- per-launch device time of K2's three launches (H pass, V pass, blend)
+- per-launch device time of K2's two launches (resample, blend)
   from torch.profiler, mean of ``REPS`` calls, at B=64 and B=256;
 - the render step at B=256 with a fresh plane (fill + K2) against the
   reuse step (K3 restore + K2, in place), CUDA-event medians over
@@ -41,7 +41,7 @@ from tools.profile_k1 import _device_us
 
 REPS = 10
 HW = (1080, 1920)
-K2_LAUNCHES = ("v3_hpass", "v3_vpass", "v3_blend")
+K2_LAUNCHES = chip_smoke.K2_LAUNCHES  # (label, a substring of the kernel's name)
 
 
 class Inputs:
@@ -98,11 +98,12 @@ def profile_k2(batch: int, smi: str, device) -> None:
             ck.fused_v3(plane, inp.objs_p, meta, env)
         torch.cuda.synchronize()
     per = _kernel_times(prof, REPS)
-    parts = {k: sum(us for key, us in per.items() if k in key) for k in K2_LAUNCHES}
+    parts = {label: sum(us for name, us in per.items() if key in name)
+             for label, key in K2_LAUNCHES}
     total = sum(parts.values())
     if total == 0:
         raise RuntimeError(f"B={batch}: the profiler saw no device time")
-    text = ", ".join(f"{k[3:]} {us:.1f} us ({100 * us / total:.0f}%)" for k, us in parts.items())
+    text = ", ".join(f"{label} {us:.1f} us ({100 * us / total:.0f}%)" for label, us in parts.items())
     print(f"[profile] K2 1080x1920 B={batch}: {text}; sum {total:.1f} us per call, "
           f"mean of {REPS} on {smi}")
     del plane
