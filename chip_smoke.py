@@ -56,8 +56,7 @@ exits non-zero:
    its arguments, and the output equal to composite_exact and PIL. Row 15:
    the five stage variants of K4 timed in turn (launch count read around
    them), each against its plain version, bit-exact;
-8. one JSON line of kernel results (K1 and K2 with ``earlier_ms``, their
-   time before the redesign; each with its bound: the larger of the
+8. one JSON line of kernel results (each with its bound: the larger of the
    bytes it must move over 3.35 TB/s and its operations over 67 TFLOP/s,
    H100 SXM peaks from NVIDIA's data sheet), the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
@@ -108,10 +107,6 @@ HYBRID_B = 64
 #: kernel's mangled name in ptxas's report)
 K1_LAUNCHES = (("bounds", "k1_bounds"), ("resample", "k1_resample"), ("blend", "K1Rects"))
 K2_LAUNCHES = (("resample", "v3_resample"), ("blend", "V3Rects"))
-#: K1's and K2's times before their redesign (chip_smoke.py's median CUDA-event
-#: ms, the last run of the PR before it; NVIDIA H100 80GB HBM3, 700.00 W)
-EARLIER_MS = {"row12_cli_9x16_b1": 0.228, "row12_1080p_b64": 9.890,
-              "row1_cli_9x16_b1": 0.206, "row1_1080p_b64": 10.083, "fused_v3": 0.654}
 
 
 def smi_line() -> str:
@@ -281,7 +276,6 @@ def phase_kernel(smi: str):
         ms, plain_ms = min(k1, k2), min(p1, p2)
         n_obj, pad = objects.shape[1], objects.shape[2:4]
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             earlier_ms=EARLIER_MS[f"row12_{name.replace('serve_', '')}"],
                              **k1_bound(canvas, objects, *tables))
         print(f"[kernel] {name}: canvas {hw[0]}x{hw[1]} B={batch} "
               f"N={objects.shape[1]} pad {objects.shape[2]}x{objects.shape[3]}: "
@@ -292,8 +286,8 @@ def phase_kernel(smi: str):
         torch.cuda.empty_cache()
     from image_transformation_tpu_torch.ops import compose_kernels as ck
 
-    print(f"[kernel] K1 launches per call: "
-          f"{launch_text(K1_LAUNCHES, (0, ck._resample_smem_bytes(*pad), 16 * n_obj))}")
+    smem = ck.launch_smem("fused_compose", *pad, n_obj)
+    print(f"[kernel] K1 launches per call: {launch_text(K1_LAUNCHES, smem)}")
     return results
 
 
@@ -602,13 +596,12 @@ def phase_batched(smi: str):
         lambda: ck.fused_v3(work_k, objs_p, meta, env),
         lambda: ck.fused_v3_reference(work_p, objs_p, meta, env), 5, 2)
     results["fused_v3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               earlier_ms=EARLIER_MS["fused_v3"],
                                **k2_bound(base, objs_p, meta, env))
     print(f"[batched] K2 canvas {H}x{W} (plane {hp}x{wp}) B={B} N={N} shared objects, "
           f"static windows: K2 == plain (max abs err {err}, {changed} pixels changed); "
           f"K2 {ms:.3f} ms ({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms "
           f"({raw[2]:.3f}, {raw[3]:.3f}), {_bound_text(results['fused_v3'])} on {smi}")
-    smem = (ck._resample_smem_bytes(*objs_p.shape[3:]), 16 * N)
+    smem = ck.launch_smem("fused_v3", *objs_p.shape[3:], N)
     print(f"[batched] K2 launches per call: {launch_text(K2_LAUNCHES, smem)}")
     del work_k, work_p
 
@@ -951,7 +944,7 @@ def _ops_row1(smi: str) -> dict:
             if not np.array_equal(out[b].cpu().numpy(), pil):
                 raise AssertionError(f"[ops] row1 {name}: canvas {b} != PIL")
         out_rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, launches=launches,
-                              earlier_ms=EARLIER_MS[f"row1_{name}"], **bnd)
+                              **bnd)
         print(f"[ops] row1 composite_batch_pallas_host_tables {name} ({H}x{W} B={B}): K1 == "
               f"plain (max abs err {err}); K1 {ms:.3f} ms ({raw[0]:.3f}, {raw[1]:.3f}), plain "
               f"{plain_ms:.3f} ms ({raw[2]:.3f}, {raw[3]:.3f}), {_bound_text(bnd)}; K1 "
@@ -1029,11 +1022,11 @@ def main_smoke() -> int:
         _entry("fused_compose", KERNEL_SOURCE,
                f"{KERNEL_REPLACES} (kernel-table row 12), {KERNEL_REPLACES_ROW1}",
                launches["fused_compose"] + sum(r["launches"] for r in row1.values()), cli,
-               earlier_ms=cli["earlier_ms"], max_abs_err=max(r["max_abs_err"] for r in (cli, serve, *row1.values())),
+               max_abs_err=max(r["max_abs_err"] for r in (cli, serve, *row1.values())),
                geometries={"row12_cli_9x16_b1": cli, "row12_1080p_b64": serve,
                            **{f"row1_{k}": v for k, v in row1.items()}}),
         _entry("fused_v3", V3_SOURCE, V3_REPLACES, batched_launches["fused_v3"],
-               batched["fused_v3"], earlier_ms=batched["fused_v3"]["earlier_ms"]),
+               batched["fused_v3"]),
         _entry("restore_windows", RESTORE_SOURCE, RESTORE_REPLACES,
                batched_launches["restore_windows"], batched["restore_windows"]),
         # the default clamped form (row 6); every row's numbers follow

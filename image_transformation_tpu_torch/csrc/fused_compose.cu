@@ -49,11 +49,12 @@
 //   kv      i32 [B, N, mh, ph]
 //   boxes   i32 [B, N, 4]         (x1, y1, x2, y2); only the origin is read
 //   flags   u8  [B, N]            bit 0 live, bit 1 identity
-//   hwin    i32 [B, N, mw, 2]     scratch: each kh row's [lo, hi)
-//   vwin    i32 [B, N, mh, 2]     scratch: each kv row's [lo, hi)
-//   part    i32 [B, N, 2, S]      scratch: extent parts, S = ceil(max(mh, mw) / 32)
-//   rects   i32 [B, N, 4]         scratch: (x, y, w, h) of each placement
-//   res     u8  [B, N, mh, mw, 4] scratch: resampled RGBA
+//   scratch u8  fused_compose_scratch_bytes(B, N, mh, mw), carved here into
+//           hwin  i32 [B, N, mw, 2]     each kh row's [lo, hi)
+//           vwin  i32 [B, N, mh, 2]     each kv row's [lo, hi)
+//           part  i32 [B, N, 2, S]      extent parts, S = ceil(max(mh, mw) / 32)
+//           rects i32 [B, N, 4]         (x, y, w, h) of each placement
+//           res   u8  [B, N, mh, mw, 4] resampled RGBA
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -202,8 +203,9 @@ k1_resample(const uchar4* __restrict__ objects, const int* __restrict__ kh,
   }
   if (ox0 >= ext_w || oy0 >= ext_h) return;  // past the live extent (or dropped)
   const int b = bk / N, k = bk - b * N;
-  const resample::InterleavedSrc src{objects, ((size_t)(Bo == 1 ? 0 : b) * N + k) * ph * pw,
-                                     pw, vec != 0};
+  const size_t obj_px = (size_t)ph * pw;
+  const resample::InterleavedSrc src{objects, ((size_t)(Bo == 1 ? 0 : b) * N + k) * obj_px,
+                                     (size_t)Bo * N * obj_px, pw, vec != 0};
   uchar4* out = res + (size_t)bk * mh * mw;
   if (flags[bk] & FLAG_IDENTITY) {
     resample::copy_tile(src, out, mw, ph, pw, ext_h, ext_w, ox0, oy0);
@@ -235,45 +237,82 @@ struct K1Rects {
 }  // namespace
 
 // slices of table rows the bounds launch takes per placement and table
-static int bounds_slices(int mh, int mw) {
+extern "C" int fused_compose_bounds_slices(int mh, int mw) {
   const int rows = mh > mw ? mh : mw;
   return (rows + BOUNDS_ROWS - 1) / BOUNDS_ROWS;
 }
 
+// K1's scratch, carved from one buffer, each region on a 256-byte boundary:
+// the table rows' windows, the extent parts, the rectangles and the
+// resampled objects. `base` 0 gives the offsets alone.
+struct K1Scratch {
+  uintptr_t hwin, vwin, part, rects, res, bytes;
+};
+
+static K1Scratch k1_scratch(uintptr_t base, int B, int N, int mh, int mw) {
+  const uintptr_t bn = (uintptr_t)B * (uintptr_t)N;
+  const uintptr_t sizes[5] = {8 * bn * mw, 8 * bn * mh,
+                              8 * bn * fused_compose_bounds_slices(mh, mw), 16 * bn,
+                              4 * bn * mh * mw};
+  uintptr_t at[5], off = 0;
+  for (int i = 0; i < 5; ++i) {
+    at[i] = base + off;
+    off += (sizes[i] + 255) / 256 * 256;
+  }
+  return {at[0], at[1], at[2], at[3], at[4], off};
+}
+
+// bytes of scratch a K1 call of B canvases of N objects with envelope (mh, mw) takes
+extern "C" long long fused_compose_scratch_bytes(int B, int N, int mh, int mw) {
+  return (long long)k1_scratch(0, B, N, mh, mw).bytes;
+}
+
+// dynamic shared memory of each of K1's three launches, for objects padded
+// to (ph, pw) and N per canvas
+extern "C" int fused_compose_smem(int ph, int pw, int N, int* out) {
+  int cap_h, cap_v;
+  out[0] = 0;
+  out[1] = resample::tap_caps(ph, pw, &cap_h, &cap_v);
+  out[2] = box_blend::smem_bytes(N);
+  return 0;
+}
+
 // Launch (a) alone: each table row's window, and each placement's extent
-// parts ext[bk, axis, 0..S) with S = ceil(max(mh, mw) / 32).
+// parts part[bk, axis, 0..S) with S = fused_compose_bounds_slices(mh, mw).
 extern "C" int fused_compose_bounds_launch(const void* kh, const void* kv, const void* boxes,
                                            const void* flags, void* hwin, void* vwin,
                                            void* part, int B, int N, int H, int W, int ph,
                                            int pw, int mh, int mw, void* stream) {
-  k1_bounds<<<dim3((unsigned)B * (unsigned)N, 2, bounds_slices(mh, mw)), BOUNDS_THREADS, 0,
-              static_cast<cudaStream_t>(stream)>>>(
+  k1_bounds<<<dim3((unsigned)B * (unsigned)N, 2, fused_compose_bounds_slices(mh, mw)),
+              BOUNDS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(kh), static_cast<const int*>(kv), static_cast<const int*>(boxes),
       static_cast<const uint8_t*>(flags), static_cast<int2*>(hwin), static_cast<int2*>(vwin),
       static_cast<int*>(part), H, W, ph, pw, mh, mw);
   return (int)cudaGetLastError();
 }
 
-// K1's three launches: (a) bounds, (b) resample, (c) blend. `part` holds
-// B*N*2*S ints, `rects` B*N int4.
+// K1's three launches: (a) bounds, (b) resample, (c) blend. `scratch` holds
+// fused_compose_scratch_bytes(B, N, mh, mw) bytes, 256-byte aligned.
 extern "C" int fused_compose_launch(void* canvas, const void* objects, const void* kh,
                                     const void* kv, const void* boxes, const void* flags,
-                                    void* hwin, void* vwin, void* part, void* rects, void* res,
-                                    int B, int Bo, int N, int H, int W, int ph, int pw, int mh,
-                                    int mw, void* stream) {
+                                    void* scratch, int B, int Bo, int N, int H, int W, int ph,
+                                    int pw, int mh, int mw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned bn = (unsigned)B * (unsigned)N;
+  const K1Scratch at = k1_scratch(reinterpret_cast<uintptr_t>(scratch), B, N, mh, mw);
+  int2* hwin = reinterpret_cast<int2*>(at.hwin);
+  int2* vwin = reinterpret_cast<int2*>(at.vwin);
+  int* part = reinterpret_cast<int*>(at.part);
+  int4* rects = reinterpret_cast<int4*>(at.rects);
+  uchar4* res = reinterpret_cast<uchar4*>(at.res);
   cudaError_t err = (cudaError_t)fused_compose_bounds_launch(
       kh, kv, boxes, flags, hwin, vwin, part, B, N, H, W, ph, pw, mh, mw, stream);
   if (err != cudaSuccess) return (int)err;
 
   // the compact tap arrays where they fit beside the core (else caps 0: every
   // tile reads its taps from the rows)
-  int cap_h = resample::coeff_cap(pw, resample::TX), cap_v = resample::coeff_cap(ph, resample::TY);
-  if (resample::TILE_SMEM_BYTES + 4 * (cap_h + cap_v) > resample::MAX_DYNAMIC_SMEM) {
-    cap_h = cap_v = 0;
-  }
-  const int smem = resample::TILE_SMEM_BYTES + 4 * (cap_h + cap_v);
+  int cap_h, cap_v;
+  const int smem = resample::tap_caps(ph, pw, &cap_h, &cap_v);
   err = resample::allow_smem(k1_resample, smem);
   if (err != cudaSuccess) return (int)err;
   const int vec = reinterpret_cast<uintptr_t>(objects) % 16 == 0;
@@ -282,17 +321,14 @@ extern "C" int fused_compose_launch(void* canvas, const void* objects, const voi
   k1_resample<<<grid_r, resample::THREADS, smem, s>>>(
       static_cast<const uchar4*>(objects), static_cast<const int*>(kh),
       static_cast<const int*>(kv), static_cast<const int*>(boxes),
-      static_cast<const uint8_t*>(flags), static_cast<const int2*>(hwin),
-      static_cast<const int2*>(vwin), static_cast<const int*>(part),
-      static_cast<int4*>(rects), static_cast<uchar4*>(res), Bo, N, ph, pw, mh, mw,
-      bounds_slices(mh, mw), cap_h, cap_v, vec);
+      static_cast<const uint8_t*>(flags), hwin, vwin, part, rects, res, Bo, N, ph, pw, mh, mw,
+      fused_compose_bounds_slices(mh, mw), cap_h, cap_v, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const dim3 grid_b(bn, (mw + box_blend::TILE - 1) / box_blend::TILE,
                     (mh + box_blend::TILE - 1) / box_blend::TILE);
   box_blend::box_blend_kernel<<<grid_b, box_blend::THREADS, box_blend::smem_bytes(N), s>>>(
-      static_cast<uchar4*>(canvas), static_cast<const uchar4*>(res),
-      K1Rects{static_cast<const int4*>(rects)}, N, H, W, mh, mw);
+      static_cast<uchar4*>(canvas), res, K1Rects{rects}, N, H, W, mh, mw);
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,10 @@
 // - resample (csrc/resample.cuh), one block per placement and 32x32 output
 //   tile: each block builds its 32 columns' and 32 rows' windows, weight
 //   sums and quantized taps once, into compact [rows][taps] arrays in
-//   shared memory (each tap's coefficient is computed once per tile); each
+//   shared memory (each tap's coefficient is computed once per tile; where
+//   objects are padded so large that the arrays do not fit beside the
+//   core, ph + pw > 7,456, each tap is computed where it is used
+//   instead, slower but with no size limit); each
 //   output column and row then walks only its own window; the
 //   source patch is staged premultiplied in shared memory, four pixels of
 //   the four planes (16 bytes) per thread, and the H result stays in shared
@@ -148,49 +151,56 @@ __device__ Row row_params(const Axis& a, int o, int out_size) {
   return r;
 }
 
-// quantized coefficient of tap i of a row with window [lo, hi) (0 outside)
-__device__ __forceinline__ int coeff(const Axis& a, float center, float wsum,
-                                     int lo, int hi, int i) {
-  if (i < lo || i >= hi) return 0;
+// quantized coefficient of tap i inside a row's window
+__device__ __forceinline__ int coeff(const Axis& a, float center, float wsum, int i) {
   const float w = __fdiv_rn(tap_weight(a, center, i), wsum);
   const float scaled = __fmul_rn(w, 4194304.0f);  // 2^22
   return (int)truncf(__fadd_rn(scaled, w < 0.0f ? -0.5f : 0.5f));
 }
 
-// K2's tables: the tile's windows, weight sums and quantized taps, built
-// once per tile into compact [rows][taps] arrays in shared memory (ragged:
-// window c's taps start at hoff[c] / voff[c]; read by SharedTaps), with the
-// plain version's f32 op order (row_params, coeff).
-struct V3Tables {
+// K2's tables for one tile: each tile column's and row's window and weight
+// sum (centre and sum in shared memory, `center`/`wsum` [TX + TY], columns
+// first), with the plain version's f32 op order (row_params, coeff). As
+// `Taps` of the core it computes each coefficient where it is used: the
+// tiles whose taps do not fit the compact arrays take that path.
+struct V3Taps {
   Axis axh, axv;
-  int out_w, out_h;
-  int* coef_h;  // dynamic shared memory, cap_h entries
-  int* coef_v;  // cap_v entries
-  int cap_h, cap_v;
+  float* center;
+  float* wsum;
 
-  __device__ void prepare(resample::TileWindows& w, int ox0, int oy0) {
-    __shared__ float s_center[resample::TX + resample::TY], s_wsum[resample::TX + resample::TY];
+  __device__ __forceinline__ int h(int c, int j) const {
+    return coeff(axh, center[c], wsum[c], j);
+  }
+  __device__ __forceinline__ int v(int r, int i) const {
+    return coeff(axv, center[resample::TX + r], wsum[resample::TX + r], i);
+  }
+
+  // The tile's windows into `w`, then, when they fit (cap_h and cap_v
+  // entries), the quantized taps built once into compact [rows][taps]
+  // arrays (ragged: window c's taps start at hoff[c] / voff[c]; read by
+  // SharedTaps). Returns whether they fit (the same in every thread).
+  __device__ bool prepare(resample::TileWindows& w, int ox0, int oy0, int out_w, int out_h,
+                          int* coef_h, int* coef_v, int cap_h, int cap_v) const {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     if (warp < 2) {  // warp 0: the tile's columns, warp 1: its rows
       const Row r = warp == 0 ? row_params(axh, ox0 + lane, out_w)
                               : row_params(axv, oy0 + lane, out_h);
-      s_center[warp * resample::TX + lane] = r.center;
-      s_wsum[warp * resample::TX + lane] = r.wsum;
+      center[warp * resample::TX + lane] = r.center;
+      wsum[warp * resample::TX + lane] = r.wsum;
       resample::set_window(w, warp, lane, r.lo, r.hi);
     }
     __syncthreads();
+    if (w.total[0] > cap_h || w.total[1] > cap_v) return false;
     // the quantized taps, one window per warp at a time, lanes over taps
     for (int e = warp; e < resample::TX + resample::TY; e += resample::WARPS) {
       const bool horiz = e < resample::TX;
       const int c = horiz ? e : e - resample::TX;
       const int lo = horiz ? w.hlo[c] : w.vlo[c], hi = horiz ? w.hhi[c] : w.vhi[c];
-      const int off = horiz ? w.hoff[c] : w.voff[c], cap = horiz ? cap_h : cap_v;
-      int* dst = horiz ? coef_h : coef_v;
+      int* dst = horiz ? coef_h + w.hoff[c] : coef_v + w.voff[c];
       const Axis ax = horiz ? axh : axv;
-      for (int i = lo + lane; i < hi && off + (i - lo) < cap; i += 32) {
-        dst[off + (i - lo)] = coeff(ax, s_center[e], s_wsum[e], lo, hi, i);
-      }
+      for (int i = lo + lane; i < hi; i += 32) dst[i - lo] = coeff(ax, center[e], wsum[e], i);
     }
+    return true;
   }
 };
 
@@ -214,14 +224,19 @@ v3_resample(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
     return;
   }
   __shared__ resample::TileWindows win;
+  __shared__ float center[resample::TX + resample::TY], wsum[resample::TX + resample::TY];
   extern __shared__ uint32_t smem[];
   int* coef = reinterpret_cast<int*>(smem + resample::TILE_SMEM_BYTES / 4);
-  V3Tables tab{axis_params(m.in_w, m.out_w), axis_params(m.in_h, m.out_h), m.out_w, m.out_h,
-               coef, coef + cap_h, cap_h, cap_v};
-  tab.prepare(win, ox0, oy0);
+  const V3Taps taps{axis_params(m.in_w, m.out_w), axis_params(m.in_h, m.out_h), center, wsum};
+  const bool staged =
+      taps.prepare(win, ox0, oy0, m.out_w, m.out_h, coef, coef + cap_h, cap_h, cap_v);
   __syncthreads();
-  resample::resample_tile(src, resample::SharedTaps{coef, coef + cap_h, &win}, win, smem, out,
-                          mw, m.out_h, m.out_w, ox0, oy0);
+  if (staged) {
+    resample::resample_tile(src, resample::SharedTaps{coef, coef + cap_h, &win}, win, smem, out,
+                            mw, m.out_h, m.out_w, ox0, oy0);
+  } else {
+    resample::resample_tile(src, taps, win, smem, out, mw, m.out_h, m.out_w, ox0, oy0);
+  }
 }
 
 // K2's placement rectangles, from the meta: the box at its origin, 0 when
@@ -246,8 +261,10 @@ extern "C" int fused_v3_launch(void* plane, const void* objects, const void* met
                                int mw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned bn = (unsigned)B * (unsigned)N;
-  const int cap_h = resample::coeff_cap(pw, resample::TX), cap_v = resample::coeff_cap(ph, resample::TY);
-  const int smem = resample::TILE_SMEM_BYTES + 4 * (cap_h + cap_v);
+  // the compact tap arrays where they fit beside the core (else caps 0: every
+  // tile computes its taps where it uses them)
+  int cap_h, cap_v;
+  const int smem = resample::tap_caps(ph, pw, &cap_h, &cap_v);
   cudaError_t err = resample::allow_smem(v3_resample, smem);
   if (err != cudaSuccess) return (int)err;
   const int vec = ((size_t)ph * pw) % 4 == 0 && reinterpret_cast<uintptr_t>(objects) % 4 == 0;
@@ -264,4 +281,13 @@ extern "C" int fused_v3_launch(void* plane, const void* objects, const void* met
       static_cast<uchar4*>(plane), static_cast<const uchar4*>(res),
       V3Rects{static_cast<const int*>(meta), mh, mw}, N, hp, wp, mh, mw);
   return (int)cudaGetLastError();
+}
+
+// dynamic shared memory of each of K2's two launches, for objects padded
+// to (ph, pw) and N per canvas
+extern "C" int fused_v3_smem(int ph, int pw, int N, int* out) {
+  int cap_h, cap_v;
+  out[0] = resample::tap_caps(ph, pw, &cap_h, &cap_v);
+  out[1] = box_blend::smem_bytes(N);
+  return 0;
 }

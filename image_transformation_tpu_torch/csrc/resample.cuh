@@ -33,7 +33,11 @@
 //   column c / row r at source column j / row i, inside the window (the
 //   kernel has written the windows into `TileWindows` before: K1 from its
 //   bounds launch, K2 from the sizes); `SharedTaps` reads compact arrays in
-//   shared memory (K2 builds them, K1 copies them from its tables);
+//   shared memory (K2 builds them, K1 copies them from its tables). Where a
+//   tile's taps do not fit those arrays (objects padded so large that the
+//   arrays do not fit beside the core, or tables no Pillow window gives),
+//   K1 reads them from its table rows and K2 computes each where it is used;
+//   no tap is dropped;
 // - the source layout `Src`: `stage` writes premultiplied source pixels of a
 //   patch into shared memory, `raw(i, j)` reads one pixel unchanged.
 
@@ -86,6 +90,17 @@ struct TileWindows {
 __host__ __device__ __forceinline__ int coeff_cap(int in_max, int lanes) {
   const int dense = lanes * in_max, bounded = 6 * in_max + 8 * lanes;
   return dense < bounded ? dense : bounded;
+}
+
+// A resample launch's compact tap arrays for objects padded to (ph, pw):
+// sets *cap_h and *cap_v (entries), or 0 and 0 when they do not fit beside
+// the core (every tile then reads its taps another way); returns the
+// dynamic shared memory of one block.
+inline int tap_caps(int ph, int pw, int* cap_h, int* cap_v) {
+  *cap_h = coeff_cap(pw, TX);
+  *cap_v = coeff_cap(ph, TY);
+  if (TILE_SMEM_BYTES + 4 * (*cap_h + *cap_v) > MAX_DYNAMIC_SMEM) *cap_h = *cap_v = 0;
+  return TILE_SMEM_BYTES + 4 * (*cap_h + *cap_v);
 }
 
 // One warp: lane l's window [lo, hi) into the tile's windows (columns for
@@ -256,14 +271,15 @@ __device__ __forceinline__ void copy_tile(const Src& src, uchar4* __restrict__ o
 }
 
 // Source layout of K1: interleaved RGBA, uchar4 [ph, pw] per object.
-// `base` is the objects tensor (16-byte aligned when `vec`), `off` the
-// object's first pixel in it. With `vec`, each thread loads 16 bytes (4
-// pixels) of a row segment aligned down to a 4-pixel boundary of the
-// tensor; the premultiply happens in registers between the load and the
+// `base` is the objects tensor of `total` pixels (16-byte aligned when
+// `vec`), `off` the object's first pixel in it. With `vec`, each thread
+// loads 16 bytes (4 pixels) of a row segment aligned down to a 4-pixel
+// boundary of the tensor (pixel by pixel where those 4 would pass its
+// end); the premultiply happens in registers between the load and the
 // shared store (so cp.async, a raw copy, does not apply).
 struct InterleavedSrc {
   const uchar4* __restrict__ base;
-  size_t off;
+  size_t off, total;
   int pw;
   bool vec;
 
@@ -281,8 +297,15 @@ struct InterleavedSrc {
         const size_t a = off + (size_t)(i0 + ri) * pw + j0;  // first pixel of the segment
         const size_t a4 = (a & ~(size_t)3) + 4 * (size_t)q;
         if (a4 >= a + n) continue;
-        const uint4 v = __ldg(q4 + a4 / 4);
-        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+        uint32_t w[4];
+        if (a4 + 4 <= total) {
+          const uint4 v = __ldg(q4 + a4 / 4);
+          w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+        } else {  // the tensor's last pixels: only those before its end
+          const uint32_t* px = reinterpret_cast<const uint32_t*>(base);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) w[t] = a4 + t < total ? __ldg(px + a4 + t) : 0u;
+        }
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
           const size_t at = a4 + t;
@@ -350,16 +373,20 @@ struct PlanarSrc {
   }
 };
 
-// Opt a kernel into `bytes` of dynamic shared memory, once per kernel and
-// size (a block's static and dynamic shared memory together above 48 KB
-// need it); returns the CUDA error (0 on success).
+// Opt a kernel into `bytes` of dynamic shared memory on the current device,
+// once per kernel, device and size (a block's static and dynamic shared
+// memory together above 48 KB need it); returns the CUDA error (0 on
+// success).
 template <class Kernel>
 inline cudaError_t allow_smem(Kernel kernel, int bytes) {
-  static int allowed = 0;  // one per kernel signature
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) allowed = bytes;
+  constexpr int MAX_DEVICES = 64;
+  static int allowed[MAX_DEVICES] = {};  // one array per kernel signature
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && bytes <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = bytes;
   return err;
 }
 

@@ -83,41 +83,16 @@ LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "restore_windows": 0, "window_ble
 
 _MAX_GRID_X = (1 << 31) - 1  # CUDA's limit on gridDim.x, which carries B*N
 _MAX_GRID_Z = 65535  # CUDA's limit on gridDim.y and gridDim.z
-#: shared memory of the resample core (csrc/resample.cuh): the source patch
-#: (64 rows of 128 + 1 packed pixels) and the H result (32 x (64 + 1) packed
-#: pixels, or a wide tile's H sums, 32 x 32 int4)
-_RESAMPLE_SMEM_BYTES = 4 * 64 * 129 + 16 * 32 * 32
-#: dynamic shared memory a resample block may take on Hopper (227 KB less its
-#: static shared memory; csrc/resample.cuh:MAX_DYNAMIC_SMEM)
-_MAX_SMEM_BYTES = 232448 - 2048
-_BOUNDS_ROWS = 32  # table rows per block of K1's bounds launch
 
 
-@functools.lru_cache(maxsize=256)
-def _scratch_layout(sizes: Tuple[int, ...]) -> Tuple[int, Tuple[int, ...]]:
-    """(total bytes, region offsets) of regions of ``sizes`` bytes, each
-    starting on a 256-byte boundary."""
-    offsets, total = [], 0
-    for n in sizes:
-        offsets.append(total)
-        total += _round_up(max(int(n), 1), 256)
-    return total, tuple(offsets)
-
-
-def _scratch(device, sizes):
-    """One uninitialised u8 buffer on ``device`` holding regions of ``sizes``
-    bytes: (buffer, region addresses). One allocation per call instead of
-    one per region."""
-    total, offsets = _scratch_layout(tuple(sizes))
-    buf = torch.empty(total, dtype=torch.uint8, device=device)
-    base = buf.data_ptr()
-    return buf, [base + o for o in offsets]
-
-
-def _raw_stream(device: torch.device) -> int:
-    """The current CUDA stream of ``device`` as an integer handle, without
-    building a ``torch.cuda.Stream`` (a K1 call at B=1 is host-bound)."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
+def _stream_handle(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle. A K1 call
+    at B=1 is host-bound, and torch's raw-stream query takes 0.1-0.3 us
+    where ``torch.cuda.current_stream(device).cuda_stream`` takes 3.4-7.2
+    us (it builds a Stream object; tools/profile_k1.py on an H100 host); the
+    public call stands in if a torch release drops the private one."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(device.index) if raw is not None else torch.cuda.current_stream(device).cuda_stream
 
 
 def reset_launch_counts() -> None:
@@ -171,20 +146,8 @@ _K1_DTYPES = (torch.uint8, torch.uint8, torch.int32, torch.int32, torch.int32, t
 def _check_args(canvas, objects, kh, kv, boxes, flags) -> None:
     """Raise on anything K1 does not take: device, dtype, shape, layout."""
     args = (canvas, objects, kh, kv, boxes, flags)
-    u8, i32 = torch.uint8, torch.int32
-    try:  # the common case in few operations: a kernel call at B=1 is host-bound
-        dev = canvas.device
-        fine = (canvas.dtype is u8 and objects.dtype is u8 and kh.dtype is i32
-                and kv.dtype is i32 and boxes.dtype is i32 and flags.dtype is u8
-                and objects.device == dev and kh.device == dev and kv.device == dev
-                and boxes.device == dev and flags.device == dev
-                and canvas.is_contiguous() and objects.is_contiguous()
-                and kh.is_contiguous() and kv.is_contiguous()
-                and boxes.is_contiguous() and flags.is_contiguous())
-    except AttributeError:
-        fine = False
     names = ("canvas", "objects", "kh", "kv", "boxes", "flags")
-    for name, t, dtype in ([] if fine else zip(names, args, _K1_DTYPES)):
+    for name, t, dtype in zip(names, args, _K1_DTYPES):
         if not torch.is_tensor(t):
             raise TypeError(f"{name} must be a torch.Tensor")
         if t.dtype != dtype:
@@ -238,7 +201,11 @@ def fused_compose_reference(
 
 
 _ARGTYPES = {
-    "fused_compose_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "fused_compose_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "fused_compose_scratch_bytes": [ctypes.c_int] * 4,
+    "fused_compose_bounds_slices": [ctypes.c_int] * 2,
+    "fused_compose_smem": [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "fused_v3_smem": [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "fused_compose_bounds_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "fused_v3_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     "restore_windows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
@@ -246,6 +213,7 @@ _ARGTYPES = {
     "window_blend_planar_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "window_blend_stage_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
+_RESTYPES = {"fused_compose_scratch_bytes": ctypes.c_longlong}
 
 
 _ENTRIES = {}
@@ -253,14 +221,15 @@ _ENTRIES = {}
 
 def _kernel_entry(name: str):
     """The C entry ``name`` of the kernels' library (built on first use),
-    with its argument types set: pointers and the stream as c_void_p."""
+    with its argument and result types set: pointers and the stream as
+    c_void_p, the result a CUDA error code unless ``_RESTYPES`` says else."""
     fn = _ENTRIES.get(name)
     if fn is None:
         from ._build import load_library
 
         fn = getattr(load_library(), name)
         fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _ENTRIES[name] = fn
     return fn
 
@@ -300,23 +269,39 @@ def fused_compose(
         raise ValueError("canvas and objects must be 4-byte aligned (uchar4 pixels)")
     fn = _kernel_entry("fused_compose_launch")
     dev = canvas.device
-    S = -(-max(mh, mw) // _BOUNDS_ROWS)
-    # one scratch buffer: table windows, extent parts, rectangles, resampled objects
-    scratch, (hwin, vwin, part, rects, res) = _scratch(
-        dev, (8 * B * N * mw, 8 * B * N * mh, 8 * B * N * S, 16 * B * N, 4 * B * N * mh * mw))
-    # the device guard only where it changes the device (a call at B=1 is host-bound)
+    # one buffer, carved by the launch: table windows, extent parts,
+    # rectangles, resampled objects
+    scratch = torch.empty(_k1_scratch_bytes(B, N, mh, mw), dtype=torch.uint8, device=dev)
+    # a call at B=1 is host-bound: the device guard (2-5 us) only where it
+    # changes the device
     with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
           else torch.cuda.device(dev)):
         rc = fn(
             canvas.data_ptr(), objects.data_ptr(), kh.data_ptr(), kv.data_ptr(),
-            boxes.data_ptr(), flags.data_ptr(), hwin, vwin, part, rects, res,
-            B, Bo, N, H, W, ph, pw, mh, mw, _raw_stream(dev),
+            boxes.data_ptr(), flags.data_ptr(), scratch.data_ptr(),
+            B, Bo, N, H, W, ph, pw, mh, mw, _stream_handle(dev),
         )
     del scratch  # freed to the caching allocator, in stream order
     if rc != 0:
         raise RuntimeError(f"fused_compose: kernel launch failed with CUDA error {rc}")
     LAUNCHES["fused_compose"] += 1
     return canvas
+
+
+@functools.lru_cache(maxsize=256)
+def _k1_scratch_bytes(B: int, N: int, mh: int, mw: int) -> int:
+    """Bytes of scratch one K1 call takes, as its launch carves it."""
+    return _kernel_entry("fused_compose_scratch_bytes")(B, N, mh, mw)
+
+
+def launch_smem(kernel: str, ph: int, pw: int, n: int) -> Tuple[int, ...]:
+    """Dynamic shared memory (bytes) of each launch of K1 (``kernel``
+    "fused_compose": bounds, resample, blend) or K2 ("fused_v3": resample,
+    blend) for objects padded to (ph, pw), ``n`` per canvas, as the launches
+    size it."""
+    out = (ctypes.c_int * {"fused_compose": 3, "fused_v3": 2}[kernel])()
+    _kernel_entry(f"{kernel}_smem")(ph, pw, n, out)
+    return tuple(out)
 
 
 def k1_tap_windows_reference(kh: torch.Tensor, kv: torch.Tensor, boxes: torch.Tensor,
@@ -358,7 +343,7 @@ def k1_tap_windows(kh: torch.Tensor, kv: torch.Tensor, boxes: torch.Tensor,
         raise ValueError(f"k1_tap_windows runs on cuda, not {kh.device}")
     B, N, mw, pw = kh.shape
     mh, ph = kv.shape[2], kv.shape[3]
-    S = -(-max(mh, mw) // _BOUNDS_ROWS)
+    S = _kernel_entry("fused_compose_bounds_slices")(mh, mw)
     dev = kh.device
     hwin = torch.empty((B, N, mw, 2), dtype=torch.int32, device=dev)
     vwin = torch.empty((B, N, mh, 2), dtype=torch.int32, device=dev)
@@ -382,20 +367,6 @@ _META_COLS = 10  # ws_x ws_y dx dy same valid in_h in_w out_h out_w
 #: u8 scratch (the resampled objects) a K2 launch may hold; the wrapper walks
 #: larger batches in chunks
 _V3_SCRATCH_BYTES = 1 << 30
-
-
-def _coeff_cap(in_max: int, lanes: int) -> int:
-    """Entries of a resample tile's compact tap array for one axis
-    (csrc/resample.cuh:coeff_cap): ``lanes`` windows over at most ``in_max``
-    taps, each at most 6 * max(in/out, 1) + 2 taps."""
-    return min(lanes * in_max, 6 * in_max + 8 * lanes)
-
-
-def _resample_smem_bytes(ph: int, pw: int) -> int:
-    """Dynamic shared memory of one K1 or K2 resample block: the core's
-    patch and H result, and the tile's taps for a 32 x 32 output tile (K1
-    leaves the taps out where this passes ``_MAX_SMEM_BYTES``)."""
-    return _RESAMPLE_SMEM_BYTES + 4 * (_coeff_cap(pw, 32) + _coeff_cap(ph, 32))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -651,10 +622,6 @@ def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
     mh, mw = (int(v) for v in out_max_hw)
     if min(B, N, hp, wp, ph, pw) == 0:
         return plane
-    smem = _resample_smem_bytes(ph, pw)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"fused_v3: objects padded to {ph}x{pw} need {smem} bytes of shared "
-                         f"memory per block, more than the card's {_MAX_SMEM_BYTES}")
     chunk = max(1, min(B, _V3_SCRATCH_BYTES // (N * 4 * mh * mw)))
     fn = _kernel_entry("fused_v3_launch")
     dev = plane.device

@@ -404,3 +404,32 @@ def test_cuda_dense_arbitrary_tables_match_plain_version():
         plain = fused_compose(*(torch.from_numpy(a.copy()) for a in args)).numpy()
         got = fused_compose(*(torch.from_numpy(a.copy()).cuda() for a in args)).cpu().numpy()
         assert np.array_equal(got, plain), seed
+
+
+@pytest.mark.cuda
+def test_cuda_pads_past_the_staged_taps_match_plain_version():
+    """Objects padded to 3999x3601: the tiles' compact tap arrays do not fit
+    beside the resample core, so every tile reads its taps from the table
+    rows. A 1-px box (one window spanning the whole source, which stages the
+    objects tensor's last pixels: its pixel count is odd), a steep downscale
+    overlapping it, and an identity copy of a small object in the pad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+    rng = np.random.default_rng(12)
+    n, ph, pw, mh, mw, h, w = 3, 3999, 3601, 64, 64, 80, 120
+    objs = rng.integers(0, 256, (1, n, ph, pw, 4), dtype=np.uint8)
+    objs[0, 2, 40:] = 0
+    objs[0, 2, :, 50:] = 0
+    hw = np.array([[[ph, pw], [ph - 1, pw - 80], [40, 50]]])
+    boxes = np.array([[[3, 2, 4, 3], [0, 0, 50, 60], [9, 7, 59, 47]]])
+    canvas = rng.integers(0, 256, (1, h, w, 4), dtype=np.uint8)
+    tables = fused_tables_prep(hw, boxes, (h, w), (ph, pw), (mh, mw))
+    assert tables[3].tolist() == [[FLAG_LIVE, FLAG_LIVE, FLAG_LIVE | FLAG_IDENTITY]]
+    plain = fused_compose(torch.from_numpy(canvas.copy()), torch.from_numpy(objs),
+                          *(torch.from_numpy(a) for a in tables)).numpy()
+    before = compose_kernels.LAUNCHES["fused_compose"]
+    got = fused_compose(torch.from_numpy(canvas.copy()).cuda(), torch.from_numpy(objs).cuda(),
+                        *(torch.from_numpy(a).cuda() for a in tables)).cpu().numpy()
+    assert compose_kernels.LAUNCHES["fused_compose"] == before + 1
+    assert not np.array_equal(got, canvas)
+    assert np.array_equal(got, plain)

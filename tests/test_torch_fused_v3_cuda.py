@@ -160,3 +160,28 @@ def test_k2_chunked_windows_and_overlaps_match_plain_version(cuda):
             op.to(cuda), hw, torch.from_numpy(boxes).to(cuda), (H, W), bg, pipelined=False)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), plain), seed
+
+
+@pytest.mark.cuda
+def test_k2_pads_past_the_staged_taps_match_plain_version(cuda):
+    """Objects padded to 4000x3600: the tiles' compact tap arrays do not fit
+    beside the resample core (ph + pw > 7,456), so every tile computes each
+    tap where it uses it. A 1-px box (one window spanning the whole
+    source), a steep downscale overlapping it, and an identity copy."""
+    rng = np.random.default_rng(11)
+    ph, pw, mh, mw = 4000, 3600, 64, 128
+    objs = torch.from_numpy(rng.integers(0, 256, (1, 3, 4, ph, pw), dtype=np.uint8)).to(cuda)
+    # ws_x ws_y dx dy same valid in_h in_w out_h out_w
+    meta = torch.tensor([[[0, 0, 5, 3, 0, 1, ph, pw, 1, 1],
+                          [0, 0, 2, 1, 0, 1, 3999, 3517, 60, 50],
+                          [128, 8, 7, 0, 1, 1, 40, 90, 40, 90]]],
+                        dtype=torch.int32, device=cuda)
+    plane = torch.from_numpy(
+        rng.integers(-2**31, 2**31, (1, 96, 384), dtype=np.int64).astype(np.int32)).to(cuda)
+    want = ck.fused_v3_reference(plane.clone(), objs, meta, (mh, mw))
+    before = ck.LAUNCHES["fused_v3"]
+    got = ck.fused_v3(plane.clone(), objs, meta, (mh, mw))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fused_v3"] == before + 1
+    assert not torch.equal(got, plane)
+    assert torch.equal(got, want)

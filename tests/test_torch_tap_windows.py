@@ -4,12 +4,16 @@ K1 (csrc/fused_compose.cu) learns each table row's window from the tables
 themselves (first and one-past-last nonzero tap) and resamples and blends
 only inside each placement's live extent; K2 (csrc/fused_v3.cu) walks each
 row's window as ``ops.resize.row_windows`` computes it and keeps a tile's
-coefficients in an array of ``_coeff_cap`` entries. Here, on the plain
-versions: restricting every table row to its window changes no output, a
+coefficients in an array of ``coeff_cap`` entries (csrc/resample.cuh).
+Here, on the plain versions: restricting every table row to its window
+changes no output, a
 placement's pixels past its extent are transparent (so blending only the
 extent changes no canvas), the windows hold every nonzero tap of the f32
 tables, and the capacity bound holds. Tolerance 0 throughout (integers).
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -146,9 +150,19 @@ def test_row_windows_hold_every_traced_tap(case):
     assert torch.equal(got, resize_with_tables(img, ident, table[:, :n_in], False))
 
 
+def _coeff_cap(in_max: int, lanes: int) -> int:
+    """csrc/resample.cuh's coeff_cap, its formula read from the header."""
+    src = (Path(ck.__file__).parents[1] / "csrc" / "resample.cuh").read_text()
+    m = re.search(r"dense = lanes \* in_max, bounded = (\d+) \* in_max \+ (\d+) \* lanes", src)
+    assert m, "coeff_cap's formula moved"
+    return min(lanes * in_max, int(m[1]) * in_max + int(m[2]) * lanes)
+
+
 def test_coefficient_capacity_holds_every_tile():
-    """K2 builds a 32-row tile's taps into coeff_cap(in_max, 32) entries:
-    the windows of any 32 consecutive rows fit, at every size pair."""
+    """K2 builds a 32-row tile's taps into coeff_cap(in_max, 32) entries
+    (where they fit beside the core): the windows of any 32 consecutive rows
+    fit, at every size pair, so no tile of a Pillow table leaves the fast
+    path."""
     sizes = [(i, o) for i in (1, 2, 3, 7, 8, 31, 64, 207, 357, 384, 700)
              for o in sorted({1, 2, 3, 5, 6, 7, 13, 31, 32, 33, i // 3 + 1, i, 2 * i, 3 * i + 1})]
     ins = torch.tensor([i for i, _ in sizes])
@@ -157,4 +171,4 @@ def test_coefficient_capacity_holds_every_tile():
     win = row_windows(ins, outs, out_max)
     lengths = (win[..., 1] - win[..., 0]).reshape(len(sizes), -1, 32).sum(-1).amax(-1)
     for (n_in, n_out), need in zip(sizes, lengths.tolist()):
-        assert need <= ck._coeff_cap(n_in, 32), (n_in, n_out, need)
+        assert need <= _coeff_cap(n_in, 32), (n_in, n_out, need)

@@ -11,12 +11,17 @@ Run from the root of a checkout (it reuses chip_smoke.py's inputs). Prints:
 - the host wall time of a warm ``ComposeEngine.compose`` at 9:16
   (including a synchronize), p50/p90, on a table-cache hit and with new
   boxes on every call (host table build + upload);
+- the host cost of each step of a K1 wrapper call at B=1 (argument check,
+  stream handle by the public and the private query, device guard always
+  and where needed, scratch allocation; ``HOST_REPS`` calls of each), and
+  the call's CUDA-event time as chip_smoke.py takes it, in 5 rounds;
 
 each line with the card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
 
@@ -32,6 +37,7 @@ from image_transformation_tpu_torch.parallel.sweep import random_downscale_boxes
 from image_transformation_tpu_torch.pipeline.engine import ComposeEngine
 
 REPS = 5
+HOST_REPS = 5000
 KERNELS = chip_smoke.K1_LAUNCHES  # (label, a substring of the kernel's name)
 
 
@@ -105,6 +111,53 @@ def time_engine(smi, device, reps=200):
           f"on {smi}")
 
 
+def host_costs(smi, device):
+    """Per-call host microseconds of the K1 wrapper's steps at the CLI
+    geometry, and the wrapper's CUDA-event ms as chip_smoke.py times it."""
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+    w9, h9 = compute_canvas_size((970, 250), "9:16", verbose=False)
+    canvas, objects, tables = chip_smoke._geometry_inputs(
+        chip_smoke.ROOT / "data" / "squarespace", (h9, w9), 1, 0, device
+    )
+    B, N, mh, mw = 1, objects.shape[1], tables[1].shape[2], tables[0].shape[2]
+    nbytes = ck._k1_scratch_bytes(B, N, mh, mw)
+
+    def guard():
+        with torch.cuda.device(device):
+            pass
+
+    def guard_if_needed():
+        with (contextlib.nullcontext() if device.index == torch.cuda.current_device()
+              else torch.cuda.device(device)):
+            pass
+
+    steps = {
+        "check": lambda: ck._check_args(canvas, objects, *tables),
+        "stream (public)": lambda: torch.cuda.current_stream(device).cuda_stream,
+        "stream (private raw)": lambda: torch._C._cuda_getCurrentRawStream(device.index),
+        "device guard": guard,
+        "device guard where needed": guard_if_needed,
+        "stream (wrapper)": lambda: ck._stream_handle(device),
+        "scratch": lambda: torch.empty(nbytes, dtype=torch.uint8, device=device),
+        "data_ptr x7": lambda: [t.data_ptr() for t in (canvas, objects, *tables, canvas)],
+    }
+    parts = []
+    for label, fn in steps.items():
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(HOST_REPS):
+            fn()
+        parts.append(f"{label} {1e6 * (time.perf_counter() - t0) / HOST_REPS:.2f}")
+    torch.cuda.synchronize()
+    print(f"[host] K1 wrapper steps at {h9}x{w9} B=1, us per call over {HOST_REPS}: "
+          f"{', '.join(parts)} on {smi}")
+    rounds = [chip_smoke.cuda_ms(lambda: fused_compose(canvas, objects, *tables), 8)
+              for _ in range(5)]
+    print(f"[host] K1 call at {h9}x{w9} B=1, CUDA-event ms (median of 8), 5 rounds: "
+          f"{', '.join(f'{r:.3f}' for r in rounds)} on {smi}")
+
+
 def main() -> int:
     smi = chip_smoke.phase_device()
     chip_smoke.phase_build()
@@ -113,6 +166,7 @@ def main() -> int:
     profile_launches("cli_9x16_b1", (h9, w9), 1, smi, device)
     profile_launches("serve_1080p_b64", (1080, 1920), 64, smi, device)
     time_engine(smi, device)
+    host_costs(smi, device)
     return 0
 
 
