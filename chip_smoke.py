@@ -29,7 +29,8 @@ exits non-zero:
    boxes from seed 0 and per-object static windows, and K3
    (restore_windows) against restore_windows_reference, both bit-exact
    (tolerance 0), with median CUDA-event times of both (and K2's launches,
-   resample and blend, with ptxas's figures); a 3-step reuse
+   resample and blend, and K3's, with ptxas's figures; the windows' summed
+   pixels beside their union, which K3 writes once); a 3-step reuse
    chain (K3 + K2 in place) equal to fresh renders; then the main path of
    the slice, throughput_sweep(kernel="pallas") at 1080p B=256 with
    warmup 1 and 5 reps, with the K2/K3 launch counts reset just before and
@@ -39,9 +40,12 @@ exits non-zero:
    each clamped x pipelined form of composite_batch_hybrid_packed, K4
    (ops/compose_kernels.window_blend) against window_blend_reference on
    that form's producer outputs, bit-exact, with median CUDA-event times
-   of both and of the producer; then the form itself, with the K4 launch
+   of both and of the producer, and on a line of its own the source bytes
+   K4's bounds launch reads beside the bound; then the form itself, with
+   the K4 launch
    count reset just before and read just after (must be > 0), equal to
-   the port's composite_batch on the card; the packed_out plane's bytes
+   the port's composite_batch on the card; K4's two launches (bounds,
+   blend) with ptxas's figures; the packed_out plane's bytes
    equal the u8 output; 4 canvases within 2/255 of PIL's own LANCZOS
    resize + alpha_composite;
 7. ops path (the hybrid batch): for kernel-table rows 7, 8, 9 (the
@@ -51,7 +55,9 @@ exits non-zero:
    function (composite_batch_hybrid_packed's flag, composite_batch_aligned,
    composite_batch_hybrid) with its launch count reset just before and read
    just after (must be > 0), within 2/255 of composite_batch (the measured
-   max is printed; 0 is expected). Row 1: composite_batch_pallas_host_tables
+   max is printed; 0 is expected); the bounds launch's bytes as in 6, and
+   the packed and planar entries' launches with ptxas's figures. Row 1:
+   composite_batch_pallas_host_tables
    at the CLI geometry and at 1080p B=64, K1 against its plain version on
    its arguments, and the output equal to composite_exact and PIL. Row 15:
    the five stage variants of K4 timed in turn (launch count read around
@@ -107,6 +113,13 @@ HYBRID_B = 64
 #: kernel's mangled name in ptxas's report)
 K1_LAUNCHES = (("bounds", "k1_bounds"), ("resample", "k1_resample"), ("blend", "K1Rects"))
 K2_LAUNCHES = (("resample", "v3_resample"), ("blend", "V3Rects"))
+#: K4's launches per call, by a substring of the kernel's name in a profiler
+#: trace (any instantiation), and in ptxas's report (the instantiation the
+#: packed and the planar entries launch on the smoke's aligned tensors)
+K4_LAUNCHES = (("bounds", "k4_bounds"), ("blend", "k4_blend"))
+K4_PTXAS = {"packed": (("bounds", "k4_boundsILb0ELb1E"), ("blend", "k4_blendILb0ELi4ELb1E")),
+            "planar": (("bounds", "k4_boundsILb1ELb1E"), ("blend", "k4_blendILb1ELi4ELb1E"))}
+K3_LAUNCHES = (("restore", "restore_kernel"),)
 
 
 def smi_line() -> str:
@@ -418,6 +431,16 @@ def placement_traffic(plane_shape, rects):
     return covered, int(mask.sum())
 
 
+def _scan_text(plane_shape, src, meta, bnd) -> str:
+    """The bytes K4's bounds launch reads beside the launch's bound (not a
+    measurement: counted from the inputs)."""
+    scan = k4_scan_bytes((plane_shape[0], *plane_shape[-2:]), src, meta)
+    return (f"K4 bounds launch reads {scan / 1e9:.4f} GB of sources "
+            f"({1e3 * scan / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s) beside the call's bound "
+            f"{bnd['bound_gbytes']:.4f} GB ({bnd['bound_ms']:.4f} ms): with JAX's signature the "
+            f"live boxes are known only after that scan")
+
+
 def blend_bound(plane_shape, src, meta, blends=True) -> dict:
     """Bound of one K4 launch on ``meta`` as the launch takes it (any
     columns zeroed), counting what these inputs need: each pixel of a valid
@@ -543,12 +566,32 @@ def k2_bound(plane, objs_p, meta, out_max_hw) -> dict:
 
 
 def k3_bound(plane, origins, extents) -> dict:
-    """Bound of one K3 launch: each window pixel written once (4 B), the
-    origins read."""
+    """Bound of one K3 launch: each pixel of the union of a canvas's windows
+    written once (4 B), the origins read; with the windows' summed pixels
+    and that union (``summed_px``, ``union_px``)."""
     rects = [(b, x, y, *extents[k]) for b, row in enumerate(origins.tolist())
              for k, (x, y) in enumerate(row)]
-    _, written = placement_traffic(plane.shape, rects)
-    return bound(4 * written + 4 * origins.numel(), 0)
+    summed, union = placement_traffic(plane.shape, rects)
+    return dict(bound(4 * union + 4 * origins.numel(), 0), summed_px=summed, union_px=union)
+
+
+def k4_scan_bytes(plane_shape, src, meta) -> int:
+    """Source bytes K4's bounds launch reads: every pixel (4 B, packed or
+    four planes) of each valid placement's envelope that lands on the plane
+    [B, hp, wp] (rounded up to its 16-byte loads)."""
+    B, hp, wp = plane_shape
+    mh, mw = src.shape[-2:]
+    q = 16 if src.dim() == 5 else 4  # pixels per 16-byte load (of each plane)
+    q = q if mw % q == 0 else 1
+    total = 0
+    for rows in meta.tolist():
+        for ws_x, ws_y, dx, dy, _, valid in rows:
+            x, y = ws_x + dx, ws_y + dy
+            r = min(mh, hp - y) - max(0, -y)
+            c0, c1 = max(0, -x), min(mw, wp - x)
+            if valid > 0 and r > 0 and c1 > c0:
+                total += 4 * r * q * (-(-c1 // q) - c0 // q)
+    return total
 
 
 def phase_batched(smi: str):
@@ -621,12 +664,16 @@ def phase_batched(smi: str):
     ms, plain_ms, raw = _in_turns(
         lambda: ck.restore_windows(work_k, origins, extents, bg),
         lambda: ck.restore_windows_reference(work_p, origins, extents, bg), 10, 3)
-    results["restore_windows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                      **k3_bound(base, origins, extents))
+    k3b = k3_bound(base, origins, extents)
+    results["restore_windows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **k3b)
     print(f"[batched] K3 B={B} N={N} per-object windows {list(static_win)}: K3 == plain "
           f"(max abs err {err}) and leaves the solid plane; K3 {ms:.3f} ms "
           f"({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms "
           f"({raw[2]:.3f}, {raw[3]:.3f}), {_bound_text(results['restore_windows'])} on {smi}")
+    print(f"[batched] K3 windows: {k3b['summed_px']} pixels summed over the windows, "
+          f"{k3b['union_px']} in their union per canvas ({k3b['summed_px'] / k3b['union_px']:.3f}"
+          f"x: the overlap a per-window fill writes twice); K3 launches per call: "
+          f"{launch_text(K3_LAUNCHES, ck.launch_smem('restore_windows', 0, 0, N))}")
     del out_k, out_p, got, want, work_k, work_p, base
 
     # a 3-step reuse chain equals fresh renders
@@ -753,6 +800,7 @@ def phase_hybrid(smi: str):
         producer_ms = cuda_ms(produce, 3)
         plane_hw = tuple(canvas_v.shape[1:])
         bnd = blend_bound(canvas_v.shape, src_v, meta)
+        print(f"[hybrid] {name} {_scan_text(canvas_v.shape, src_v, meta, bnd)}")
         del got, want, work_k, work_p, canvas_v, src_v, meta
 
         # the slice's main path for this form: launch counts around it alone
@@ -778,6 +826,8 @@ def phase_hybrid(smi: str):
               f"composite_batch, K4 launches {launches} on {smi}")
         torch.cuda.empty_cache()
 
+    smem = ck.launch_smem("window_blend", 0, 0, N)
+    print(f"[hybrid] K4 launches per call: {launch_text(K4_PTXAS['packed'], smem)}")
     packed = ck.composite_batch_hybrid_packed(canvases, objs, hw, boxes, clamped=True,
                                               packed_out=True)
     if packed.dtype != torch.int32 or not torch.equal(ck.packed_to_u8(packed), outs["row6"]):
@@ -858,6 +908,7 @@ def _ops_k4_rows(smi: str, ref) -> dict:
         producer_ms = cuda_ms(produce, 3)
         plane_shape, src_hw = (plane.shape[0], *plane.shape[-2:]), tuple(src.shape[-2:])
         bnd = blend_bound(plane_shape, src, kmeta)
+        print(f"[ops] {row} {_scan_text(plane_shape, src, kmeta, bnd)}")
         del got, want, work_k, work_p, plane, src, meta, kmeta
 
         # the row's public function: launch counts around it alone
@@ -884,6 +935,10 @@ def _ops_k4_rows(smi: str, ref) -> dict:
               f"composite_batch max abs err {diff} (limit 2) on {smi}")
         del out
         torch.cuda.empty_cache()
+    smem = ck.launch_smem("window_blend", 0, 0, objs.shape[1])
+    for layout in ("packed", "planar"):
+        print(f"[ops] K4 {layout} entry launches per call: "
+              f"{launch_text(K4_PTXAS[layout], smem)}")
     return rows
 
 

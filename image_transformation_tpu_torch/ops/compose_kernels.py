@@ -30,7 +30,9 @@ of the previous render's windows.
 K4, the two-program hybrid (``csrc/window_blend.cu``; JAX :1029-1207,
 :1210-2084, :2144-2453): a plain-torch producer resizes every object into
 sources ``[B, N, mh, mw]`` and pads the canvases into the plane; K4
-alpha-overs the sources onto the plane through their windows.
+alpha-overs the sources onto the plane through their windows, in two
+launches: bounds (each placement's box of nonzero source pixels,
+:func:`k4_live_rects_reference`), then a z-order blend over those boxes.
 
 - the producers :func:`_hybrid_producer` (unclamped, the plane padded by a
   window), :func:`_hybrid_producer_clamped`, :func:`_hybrid_producer_rowbaked`
@@ -209,11 +211,17 @@ _ARGTYPES = {
     "fused_compose_bounds_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "fused_v3_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     "restore_windows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "window_blend_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "window_blend_planar_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "window_blend_stage_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "restore_windows_smem": [ctypes.c_int],
+    "window_blend_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "window_blend_planar_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "window_blend_stage_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "window_blend_bounds_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "window_blend_scratch_bytes": [ctypes.c_int] * 3,
+    "window_blend_slices": [ctypes.c_int, ctypes.c_void_p],
+    "window_blend_smem": [ctypes.c_int, ctypes.c_void_p],
 }
-_RESTYPES = {"fused_compose_scratch_bytes": ctypes.c_longlong}
+_RESTYPES = {"fused_compose_scratch_bytes": ctypes.c_longlong,
+             "window_blend_scratch_bytes": ctypes.c_longlong}
 
 
 _ENTRIES = {}
@@ -232,6 +240,14 @@ def _kernel_entry(name: str):
         fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _ENTRIES[name] = fn
     return fn
+
+
+def _device_guard(dev: torch.device):
+    """``torch.cuda.device(dev)`` where ``dev`` is not the current device, else
+    nothing: a wrapper call at a small size is host-bound, and the guard
+    costs 2-5 us where checking the current device first costs ~1 (PERF.md)."""
+    return (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+            else torch.cuda.device(dev))
 
 
 def fused_compose(
@@ -272,10 +288,7 @@ def fused_compose(
     # one buffer, carved by the launch: table windows, extent parts,
     # rectangles, resampled objects
     scratch = torch.empty(_k1_scratch_bytes(B, N, mh, mw), dtype=torch.uint8, device=dev)
-    # a call at B=1 is host-bound: the device guard (2-5 us) only where it
-    # changes the device
-    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-          else torch.cuda.device(dev)):
+    with _device_guard(dev):
         rc = fn(
             canvas.data_ptr(), objects.data_ptr(), kh.data_ptr(), kv.data_ptr(),
             boxes.data_ptr(), flags.data_ptr(), scratch.data_ptr(),
@@ -296,11 +309,17 @@ def _k1_scratch_bytes(B: int, N: int, mh: int, mw: int) -> int:
 
 def launch_smem(kernel: str, ph: int, pw: int, n: int) -> Tuple[int, ...]:
     """Dynamic shared memory (bytes) of each launch of K1 (``kernel``
-    "fused_compose": bounds, resample, blend) or K2 ("fused_v3": resample,
-    blend) for objects padded to (ph, pw), ``n`` per canvas, as the launches
-    size it."""
-    out = (ctypes.c_int * {"fused_compose": 3, "fused_v3": 2}[kernel])()
-    _kernel_entry(f"{kernel}_smem")(ph, pw, n, out)
+    "fused_compose": bounds, resample, blend), K2 ("fused_v3": resample,
+    blend), K4 ("window_blend": bounds, blend) or K3 ("restore_windows")
+    for objects padded to (ph, pw), ``n`` per canvas, as the launches size
+    it (K3 and K4 ignore the pad)."""
+    if kernel == "restore_windows":
+        return (_kernel_entry("restore_windows_smem")(n),)
+    out = (ctypes.c_int * {"fused_compose": 3, "fused_v3": 2, "window_blend": 2}[kernel])()
+    if kernel == "window_blend":
+        _kernel_entry("window_blend_smem")(n, out)
+    else:
+        _kernel_entry(f"{kernel}_smem")(ph, pw, n, out)
     return tuple(out)
 
 
@@ -643,7 +662,7 @@ def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
 
 # --------------------------- K3: window restore ---------------------------
 
-def _check_restore_args(plane, origins, extents) -> None:
+def _check_restore_args(plane, origins, n_extents: int) -> None:
     for name, t in dict(plane=plane, origins=origins).items():
         if not torch.is_tensor(t) or t.dtype != torch.int32:
             raise TypeError(f"{name} must be an int32 torch.Tensor")
@@ -655,8 +674,26 @@ def _check_restore_args(plane, origins, extents) -> None:
         raise ValueError(f"plane must be [B, hp, wp], got {tuple(plane.shape)}")
     if origins.dim() != 3 or origins.shape[0] != plane.shape[0] or origins.shape[2] != 2:
         raise ValueError(f"origins must be [B, N, 2], got {tuple(origins.shape)}")
-    if len(extents) != origins.shape[1] or any(len(e) != 2 for e in extents):
+    if n_extents != origins.shape[1]:
+        raise ValueError(f"{n_extents} window extents for {origins.shape[1]} objects")
+
+
+def _restore_pairs(extents) -> Tuple[Tuple[int, int], ...]:
+    """The (h, w) window extents as a tuple of int pairs; raises on anything
+    else."""
+    if any(len(e) != 2 for e in extents):
         raise ValueError(f"extents must be N (h, w) pairs, got {extents}")
+    return tuple((int(h), int(w)) for h, w in extents)
+
+
+@functools.lru_cache(maxsize=64)
+def _restore_table(extents, device: torch.device) -> Tuple[torch.Tensor, int]:
+    """(extents i32 [N, 2] on ``device``, the largest window height) of one
+    extents sequence, built once per (sequence, device) so that a render
+    step makes no host-to-device copy and no host loop."""
+    pairs = _restore_pairs(extents)
+    table = torch.tensor(pairs, dtype=torch.int32, device=device).reshape(len(pairs), 2)
+    return table, max((h for h, _ in pairs), default=0)
 
 
 def restore_windows_reference(plane: torch.Tensor, origins: torch.Tensor,
@@ -665,7 +702,8 @@ def restore_windows_reference(plane: torch.Tensor, origins: torch.Tensor,
     """Plain PyTorch version of K3: fill each window (origin (x, y) of
     placement (b, k), extent (h, w) of object k) with ``bg_packed``, cut at
     the plane's edge. Updates ``plane`` in place and returns it."""
-    _check_restore_args(plane, origins, extents)
+    _check_restore_args(plane, origins, len(extents))
+    extents = _restore_pairs(extents)
     for b, row in enumerate(origins.tolist()):
         for k, (x, y) in enumerate(row):
             h, w = extents[k]
@@ -679,29 +717,32 @@ def restore_windows(plane: torch.Tensor, origins: torch.Tensor,
     Updates ``plane`` IN PLACE and returns it.
 
     plane i32 [B, hp, wp]; origins i32 [B, N, 2] (x, y); extents: N host
-    (h, w) pairs, the window extent of object k. On a CUDA device this launches K3 (``csrc/restore_windows.cu``)
-    and raises if the launch fails; on the CPU it runs
-    :func:`restore_windows_reference`.
+    (h, w) pairs, the window extent of object k (a tuple of pairs, as the
+    render programs pass, is uploaded once and then found in a cache). On a
+    CUDA device this launches K3 (``csrc/restore_windows.cu``) and raises if
+    the launch fails; on the CPU it runs :func:`restore_windows_reference`.
     """
     if plane.device.type == "cpu":
         return restore_windows_reference(plane, origins, extents, bg_packed)
-    _check_restore_args(plane, origins, extents)
+    _check_restore_args(plane, origins, len(extents))
     if plane.device.type != "cuda":
         raise ValueError(f"restore_windows runs on cuda or cpu, not {plane.device}")
     B, hp, wp = plane.shape
     N = origins.shape[1]
     if min(B, N, hp, wp) == 0:
         return plane
-    extents = tuple((int(h), int(w)) for h, w in extents)
-    ext_d = _device_table(extents, torch.int32, plane.device)
-    max_wh = max(h for h, _ in extents)
+    dev = plane.device
+    try:
+        ext_d, max_wh = _restore_table(extents, dev)
+    except TypeError:  # an unhashable sequence (a list): its tuple
+        ext_d, max_wh = _restore_table(_restore_pairs(extents), dev)
     fn = _kernel_entry("restore_windows_launch")
-    with torch.cuda.device(plane.device):
-        stream = torch.cuda.current_stream(plane.device).cuda_stream
+    with _device_guard(dev):
         rc = fn(plane.data_ptr(), origins.data_ptr(), ext_d.data_ptr(),
-                B, N, hp, wp, max_wh, int(bg_packed), stream)
+                B, N, hp, wp, max_wh, int(bg_packed), _stream_handle(dev))
     if rc != 0:
-        raise RuntimeError(f"restore_windows: kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"restore_windows: kernel launch failed with CUDA error {rc} "
+                           "(past ~14,500 windows a canvas's do not fit shared memory)")
     LAUNCHES["restore_windows"] += 1
     return plane
 
@@ -1133,25 +1174,118 @@ def window_blend_reference(plane: torch.Tensor, src: torch.Tensor,
     return plane
 
 
+@functools.lru_cache(maxsize=256)
+def _k4_scratch_bytes(B: int, N: int, mh: int) -> int:
+    """Bytes of scratch one K4 call takes (its bounds parts), as its launch
+    carves it."""
+    return _kernel_entry("window_blend_scratch_bytes")(B, N, mh)
+
+
+@functools.lru_cache(maxsize=256)
+def _k4_slices(mh: int) -> Tuple[int, int]:
+    """Row slices per placement of K4's bounds and blend launches (their
+    grids' y extents; the first is the bounds parts per placement)."""
+    out = (ctypes.c_int * 2)()
+    _kernel_entry("window_blend_slices")(mh, out)
+    return tuple(out)
+
+
+def _k4_grid_check(B: int, N: int, mh: int) -> None:
+    if B * N > _MAX_GRID_X or max(_k4_slices(mh)) > _MAX_GRID_Z:
+        raise ValueError(f"B*N = {B * N} or the source height {mh} exceeds the kernel's "
+                         "grid limits")
+
+
 def _blend_launch(name: str, plane, src, meta, *extra) -> None:
-    """Launch the K4 entry ``<name>_launch`` on the current stream over the
-    checked arguments, raise if the launch fails, and count it."""
+    """Launch the K4 entry ``<name>_launch`` (its two launches: bounds, then
+    blend) on the current stream over the checked arguments, raise if a
+    launch fails, and count the call."""
     B, N = src.shape[0], src.shape[1]
     hp, wp = plane.shape[-2:]
     mh, mw = src.shape[-2:]
     if min(B, N, hp, wp, mh, mw) == 0:
         return
-    if B * N > _MAX_GRID_X or max(-(-mh // 8), -(-mw // 32)) > _MAX_GRID_Z:
-        raise ValueError(f"B*N = {B * N} or the source extent {(mh, mw)} exceeds "
-                         "the kernel's grid limits")
+    _k4_grid_check(B, N, mh)
     fn = _kernel_entry(f"{name}_launch")
-    with torch.cuda.device(plane.device):
-        stream = torch.cuda.current_stream(plane.device).cuda_stream
-        rc = fn(plane.data_ptr(), src.data_ptr(), meta.data_ptr(),
-                B, N, hp, wp, mh, mw, *extra, stream)
+    dev = plane.device
+    # one buffer: the bounds launch's parts, reduced by the blend launch
+    scratch = torch.empty(_k4_scratch_bytes(B, N, mh), dtype=torch.uint8, device=dev)
+    with _device_guard(dev):
+        rc = fn(plane.data_ptr(), src.data_ptr(), meta.data_ptr(), scratch.data_ptr(),
+                B, N, hp, wp, mh, mw, *extra, _stream_handle(dev))
+    del scratch  # freed to the caching allocator, in stream order
     if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc} (past ~7,200 "
+                           "placements a canvas's rectangles do not fit shared memory)")
     LAUNCHES[name] += 1
+
+
+def k4_live_rects_reference(src: torch.Tensor, meta: torch.Tensor,
+                            plane_hw: Tuple[int, int] | None = None) -> torch.Tensor:
+    """Plain version of K4's bounds launch: i32 [B, N, 4] rectangles (x, y,
+    w, h), each valid placement's bounding box of its NONZERO source pixels
+    (any plane of a planar source) at its origin (ws_x + dx, ws_y + dy);
+    (0, 0, 0, 0) for an invalid placement or one with no such pixel. With
+    ``plane_hw`` = (hp, wp) only the source pixels that land on the plane
+    count, as on the card, where the launch reads no others.
+
+    ``src`` is packed i32 [B, N, mh, mw] or planar u8 [B, N, 4, mh, mw];
+    ``meta`` i32 [B, N, 6] (ws_x, ws_y, dx, dy, same, valid)."""
+    live = (src != 0).any(dim=2) if src.dim() == 5 else src != 0
+    mh, mw = live.shape[-2:]
+    m = meta.to(torch.int64)
+    x, y = m[..., 0] + m[..., 2], m[..., 1] + m[..., 3]  # each source's origin
+    rows = torch.arange(mh, device=src.device)
+    cols = torch.arange(mw, device=src.device)
+    if plane_hw is not None:
+        hp, wp = plane_hw
+        on_r = ((y[..., None] + rows) >= 0) & ((y[..., None] + rows) < hp)
+        on_c = ((x[..., None] + cols) >= 0) & ((x[..., None] + cols) < wp)
+        live = live & on_r[..., :, None] & on_c[..., None, :]
+    live_r, live_c = live.any(-1), live.any(-2)
+    return _k4_rects(meta, torch.where(live_r, rows, mh).amin(-1),
+                     torch.where(live_r, rows + 1, 0).amax(-1),
+                     torch.where(live_c, cols, mw).amin(-1),
+                     torch.where(live_c, cols + 1, 0).amax(-1))
+
+
+def _k4_rects(meta, r0, r1, c0, c1) -> torch.Tensor:
+    """i32 [B, N, 4] rectangles (x, y, w, h) from each placement's first and
+    one-past-last live source row and column [B, N] at its origin; (0, 0,
+    0, 0) for an invalid placement or an empty box."""
+    m = meta.to(torch.int64)
+    x, y = m[..., 0] + m[..., 2], m[..., 1] + m[..., 3]
+    keep = (m[..., 5] > 0) & (r1 > r0)
+    rect = torch.stack([x + c0, y + r0, c1 - c0, r1 - r0], -1)
+    return torch.where(keep[..., None], rect, 0).to(torch.int32)
+
+
+def k4_live_rects(src: torch.Tensor, meta: torch.Tensor,
+                  plane_hw: Tuple[int, int]) -> torch.Tensor:
+    """K4's bounds launch alone, on the card (for the card tests; not counted
+    in ``LAUNCHES``): its parts, reduced over the row slices here as the
+    blend launch reduces them, as :func:`k4_live_rects_reference` returns
+    them with ``plane_hw``."""
+    if src.device.type != "cuda":
+        raise ValueError(f"k4_live_rects runs on cuda, not {src.device}")
+    planar = src.dim() == 5
+    if (src.dtype != (torch.uint8 if planar else torch.int32) or meta.dtype != torch.int32
+            or meta.device != src.device or not (src.is_contiguous() and meta.is_contiguous())
+            or tuple(meta.shape) != (*src.shape[:2], 6)):
+        raise ValueError("k4_live_rects takes contiguous src and meta as window_blend(_planar)")
+    B, N = src.shape[:2]
+    mh, mw = src.shape[-2:]
+    _k4_grid_check(B, N, mh)
+    S = _k4_slices(mh)[0]
+    part = torch.empty((B, N, S, 4), dtype=torch.int32, device=src.device)
+    with _device_guard(src.device):
+        rc = _kernel_entry("window_blend_bounds_launch")(
+            src.data_ptr(), meta.data_ptr(), part.data_ptr(), B, N, int(plane_hw[0]),
+            int(plane_hw[1]), mh, mw, int(planar), _stream_handle(src.device))
+    if rc != 0:
+        raise RuntimeError(f"k4_live_rects: kernel launch failed with CUDA error {rc}")
+    return _k4_rects(meta, part[..., 0].amin(-1), part[..., 1].amax(-1),
+                     part[..., 2].amin(-1), part[..., 3].amax(-1))
 
 
 def window_blend(plane: torch.Tensor, src: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:

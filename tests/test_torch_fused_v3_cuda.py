@@ -129,6 +129,38 @@ def test_k3_and_reuse_chain_match_plain_version(cuda):
 
 
 @pytest.mark.cuda
+def test_k3_overlapping_narrow_and_edge_windows_match_plain_version(cuda):
+    """Windows that overlap (stacked on their predecessor give or take a few
+    pixels), 1-3 px wide, at odd columns (16-byte groups cut at both ends),
+    past each edge of the plane and off it; plane widths off multiples of 4
+    (rows that start off 16-byte boundaries)."""
+    for seed in range(30):
+        rng = np.random.default_rng(500 + seed)
+        B, N = int(rng.integers(1, 5)), int(rng.integers(1, 9))
+        hp, wp = int(rng.integers(1, 60)), int(rng.integers(1, 300))
+        plane = torch.from_numpy(
+            rng.integers(-2**31, 2**31, (B, hp, wp), dtype=np.int64).astype(np.int32))
+        ext = [(int(rng.integers(1, 40)), int(rng.choice([1, 2, 3, int(rng.integers(1, 200))])))
+               for _ in range(N)]
+        xy = np.zeros((B, N, 2), np.int32)
+        for b in range(B):
+            for k in range(N):
+                if k and rng.random() < 0.4:
+                    xy[b, k] = xy[b, k - 1] + rng.integers(-3, 4, 2)
+                else:
+                    xy[b, k] = (rng.integers(-60, wp + 5), rng.integers(-20, hp + 5))
+        origins = torch.from_numpy(xy)
+        bg = int(rng.integers(-2**31, 2**31))
+        want = ck.restore_windows_reference(plane.clone(), origins, ext, bg)
+        got = ck.restore_windows(plane.to(cuda), origins.to(cuda), tuple(ext), bg)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), seed
+        # a list of pairs (not cached: its tuple is) gives the same
+        got = ck.restore_windows(plane.to(cuda), origins.to(cuda), ext, bg)
+        assert torch.equal(got.cpu(), want), seed
+
+
+@pytest.mark.cuda
 def test_k2_chunked_windows_and_overlaps_match_plain_version(cuda):
     """Pads up to 300x420, so 1-px boxes (windows spanning the whole
     source) and steep downscales walk the source patch in chunks of rows

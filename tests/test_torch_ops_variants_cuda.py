@@ -15,7 +15,7 @@ from image_transformation_tpu_torch import ops
 from image_transformation_tpu_torch.core.bundle import load_bundle
 from image_transformation_tpu_torch.ops import compose_kernels as ck
 from image_transformation_tpu_torch.parallel.sweep import random_downscale_boxes
-from tests.test_torch_hybrid_cuda import _blend_case
+from tests.test_torch_hybrid_cuda import _blend_case, _planar, live_blend_case
 
 
 @pytest.fixture
@@ -23,11 +23,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K4's entries have no CPU mode")
     return torch.device("cuda", 0)
-
-
-def _planar(packed):
-    """A packed int32 [..., H, W] as planar u8 [..., 4, H, W]."""
-    return ck.packed_to_u8(packed).movedim(-1, -3).contiguous()
 
 
 @pytest.mark.cuda
@@ -43,6 +38,47 @@ def test_planar_entry_matches_plain_version_on_random_geometries(cuda):
         assert torch.equal(got.cpu(), want), seed
         # the planar entry is the packed one on another layout
         assert torch.equal(want, _planar(ck.window_blend_reference(plane.clone(), src, meta)))
+
+
+def _misaligned(t):
+    """``t`` copied into storage that starts one byte past an allocation's
+    start: its rows no longer start on 4-byte boundaries."""
+    buf = torch.empty(t.numel() + 1, dtype=torch.uint8, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+def test_planar_entry_matches_plain_version_on_live_boxes(cuda):
+    """Live boxes at odd columns, stacked placements sharing a 4-byte word
+    of each plane, rectangles past every edge, invalid placements; plane
+    and source widths off multiples of 4 (the entry's byte walk), and
+    planes and sources whose storage starts off a 4-byte boundary."""
+    for seed in range(40):
+        plane, src, meta = live_blend_case(300 + seed)
+        plane_p, src_p = _planar(plane), _planar(src)
+        want = ck.window_blend_planar_reference(plane_p.clone(), src_p, meta)
+        for shift in (False, True):
+            got, s = plane_p.to(cuda), src_p.to(cuda)
+            if shift:
+                got, s = _misaligned(got), _misaligned(s)
+            before = ck.LAUNCHES["window_blend_planar"]
+            ck.window_blend_planar(got, s, meta.to(cuda))
+            torch.cuda.synchronize()
+            assert ck.LAUNCHES["window_blend_planar"] == before + 1
+            assert torch.equal(got.cpu(), want), (seed, shift)
+
+
+@pytest.mark.cuda
+def test_stage_entry_matches_plain_version_on_live_boxes(cuda):
+    for seed in range(20):
+        plane, src, meta = live_blend_case(400 + seed)
+        for variant in ck.STAGE_VARIANTS:
+            want = ck.window_blend_stage_reference(plane.clone(), src, meta, variant)
+            got = ck.window_blend_stage(plane.to(cuda), src.to(cuda), meta.to(cuda), variant)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (seed, variant)
 
 
 @pytest.mark.cuda

@@ -13,8 +13,10 @@ Run from the root of a checkout (it reuses chip_smoke.py's inputs). Prints:
   boxes on every call (host table build + upload);
 - the host cost of each step of a K1 wrapper call at B=1 (argument check,
   stream handle by the public and the private query, device guard always
-  and where needed, scratch allocation; ``HOST_REPS`` calls of each), and
-  the call's CUDA-event time as chip_smoke.py takes it, in 5 rounds;
+  and where needed, scratch allocation; ``HOST_REPS`` calls of each), the
+  whole call's host time, and its CUDA-event time as chip_smoke.py takes
+  it, in 5 rounds (``wrapper_costs``, which tools/profile_k2.py and
+  tools/profile_k4.py use for K3 and K4);
 
 each line with the card's nvidia-smi name and power limit.
 """
@@ -142,19 +144,45 @@ def host_costs(smi, device):
         "scratch": lambda: torch.empty(nbytes, dtype=torch.uint8, device=device),
         "data_ptr x7": lambda: [t.data_ptr() for t in (canvas, objects, *tables, canvas)],
     }
+    wrapper_costs(f"K1 wrapper steps at {h9}x{w9} B=1", steps,
+                  lambda: fused_compose(canvas, objects, *tables), smi)
+
+
+def _launch_host_us(call, reps: int = 200) -> float:
+    """Median host microseconds of ``call`` (which launches work), each call
+    on an idle device (synchronized after, outside the timed span)."""
+    host = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        host.append(1e6 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    return statistics.median(host)
+
+
+def wrapper_costs(label: str, steps: dict, call, smi: str, reps: int = HOST_REPS,
+                  launching: dict | None = None) -> None:
+    """Print the host microseconds per call of each step in ``steps`` (name
+    -> function) over ``reps`` calls, of each step in ``launching`` (steps
+    that launch kernels, each timed on an idle device, median of 200), the
+    whole ``call``'s host time (the same way: what it keeps an idle device
+    waiting), and its CUDA-event ms as chip_smoke.py takes it, in 5
+    rounds."""
     parts = []
-    for label, fn in steps.items():
+    for name, fn in steps.items():
         fn()
         t0 = time.perf_counter()
-        for _ in range(HOST_REPS):
+        for _ in range(reps):
             fn()
-        parts.append(f"{label} {1e6 * (time.perf_counter() - t0) / HOST_REPS:.2f}")
+        parts.append(f"{name} {1e6 * (time.perf_counter() - t0) / reps:.2f}")
     torch.cuda.synchronize()
-    print(f"[host] K1 wrapper steps at {h9}x{w9} B=1, us per call over {HOST_REPS}: "
-          f"{', '.join(parts)} on {smi}")
-    rounds = [chip_smoke.cuda_ms(lambda: fused_compose(canvas, objects, *tables), 8)
-              for _ in range(5)]
-    print(f"[host] K1 call at {h9}x{w9} B=1, CUDA-event ms (median of 8), 5 rounds: "
+    one = torch.zeros(16, device=torch.cuda.current_device())
+    launching = {"one torch launch (zero_ of 16 floats)": one.zero_, **(launching or {})}
+    parts += [f"{name} {_launch_host_us(fn):.2f}" for name, fn in launching.items()]
+    print(f"[host] {label}, us per call: {', '.join(parts)}; the whole call "
+          f"{_launch_host_us(call):.2f} us of host time (median of 200) on {smi}")
+    rounds = [chip_smoke.cuda_ms(call, 8) for _ in range(5)]
+    print(f"[host] {label}: the call's CUDA-event ms (median of 8), 5 rounds: "
           f"{', '.join(f'{r:.3f}' for r in rounds)} on {smi}")
 
 

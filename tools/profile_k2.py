@@ -11,7 +11,9 @@ phases). Squarespace objects shared, 1080x1920 canvases, boxes from
   from torch.profiler, mean of ``REPS`` calls, at B=64 and B=256;
 - the render step at B=256 with a fresh plane (fill + K2) against the
   reuse step (K3 restore + K2, in place), CUDA-event medians over
-  alternating box sets, with the fill and K3 device times;
+  alternating box sets, with each launch's device time per step;
+- the K3 wrapper's host steps at B=64, its whole host time and its
+  CUDA-event time (tools/profile_k1.py ``wrapper_costs``);
 - the sweep's solid render step at B=256 (stat "luma", then "fence";
   reuse on): host
   wall per step over ``REPS`` steps ending in one fence, the device time
@@ -37,7 +39,7 @@ from image_transformation_tpu_torch.parallel.sweep import (
     make_solid_render_step,
     random_downscale_boxes,
 )
-from tools.profile_k1 import _device_us
+from tools.profile_k1 import _device_us, wrapper_costs
 
 REPS = 10
 HW = (1080, 1920)
@@ -131,18 +133,48 @@ def reuse_vs_fresh(batch: int, smi: str, device) -> None:
     r1 = chip_smoke.cuda_ms(reuse_steps, REPS) / n
     r2 = chip_smoke.cuda_ms(reuse_steps, REPS) / n
     f2 = chip_smoke.cuda_ms(fresh_steps, REPS) / n
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fresh_steps()
-        reuse_steps()
-        torch.cuda.synchronize()
-    per = _kernel_times(prof, n)
-    fill = sum(us for k, us in per.items() if "fill" in k.lower())
-    k3 = sum(us for k, us in per.items() if "restore_kernel" in k)
+    launches = {}
+    for name, steps, first in (("fresh", fresh_steps, ("fill", "fill")),
+                               ("reuse", reuse_steps, chip_smoke.K3_LAUNCHES[0])):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            steps()
+            torch.cuda.synchronize()
+        per = _kernel_times(prof, n)
+        launches[name] = ", ".join(
+            f"{label} {sum(us for k, us in per.items() if key.lower() in k.lower()):.1f} us"
+            for label, key in (first, *K2_LAUNCHES))
     print(f"[reuse] 1080x1920 B={batch} per step, median of {REPS} x {n} steps: fresh "
           f"(fill + K2) {min(f1, f2):.3f} ms ({f1:.3f}, {f2:.3f}); reuse (K3 + K2) "
-          f"{min(r1, r2):.3f} ms ({r1:.3f}, {r2:.3f}); device: fill {fill:.1f} us, "
-          f"K3 {k3:.1f} us per step on {smi}")
+          f"{min(r1, r2):.3f} ms ({r1:.3f}, {r2:.3f}); device time per step of each launch "
+          f"(torch.profiler): fresh {launches['fresh']}; reuse {launches['reuse']} on {smi}")
     del plane_cell
+    torch.cuda.empty_cache()
+
+
+def host_costs(batch: int, smi: str, device) -> None:
+    """The K3 wrapper's host steps on the windows of a B=``batch`` render
+    (per-object static windows, as chip_smoke.py's [batched] line)."""
+    inp = Inputs(batch, device)
+    meta, env, (hp, wp) = ck._render_meta(
+        inp.objs_p, inp.hw, inp.boxes[0], HW, None, True, inp.static)
+    plane = torch.full((batch, hp, wp), inp.bg, dtype=torch.int32, device=device)
+    ck.fused_v3(plane, inp.objs_p, meta, env)
+    win = ck._static_window_extents(inp.static, env)
+    origins = ck._restore_meta_static(inp.boxes[0], HW, (hp, wp), win)
+    steps = {
+        "check": lambda: ck._check_restore_args(plane, origins, len(win)),
+        "extents table (cached)": lambda: ck._restore_table(win, device),
+        "device guard where needed": lambda: ck._device_guard(device).__enter__(),
+        "stream (wrapper)": lambda: ck._stream_handle(device),
+    }
+    fn = ck._kernel_entry("restore_windows_launch")
+    ext_d, max_wh = ck._restore_table(win, device)
+    args = (plane.data_ptr(), origins.data_ptr(), ext_d.data_ptr(), batch, len(win), hp, wp,
+            max_wh, inp.bg, ck._stream_handle(device))
+    wrapper_costs(f"K3 wrapper steps at 1080x1920 B={batch}", steps,
+                  lambda: ck.restore_windows(plane, origins, win, inp.bg), smi, reps=2000,
+                  launching={"C entry (the launch)": lambda: fn(*args)})
+    del plane
     torch.cuda.empty_cache()
 
 
@@ -183,6 +215,7 @@ def main() -> int:
     for batch in (64, 256):
         profile_k2(batch, smi, device)
     reuse_vs_fresh(256, smi, device)
+    host_costs(64, smi, device)
     for stat_name in ("luma", "fence"):
         sweep_step(256, stat_name, smi, device)
     return 0
