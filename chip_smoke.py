@@ -62,7 +62,21 @@ exits non-zero:
    its arguments, and the output equal to composite_exact and PIL. Row 15:
    the five stage variants of K4 timed in turn (launch count read around
    them), each against its plain version, bit-exact;
-8. one JSON line of kernel results (each with its bound: the larger of the
+8. variants path (the multi-ratio fused render, pipeline/fused.py, at a
+   fleet user's size): run_fleet over squarespace and audio_book x 8 ratios
+   at a 1920x1080 pixel budget, kernel "pallas", 20 reps, with the K2
+   launch count reset just before and read just after (one launch per pass
+   at least), its PNGs and boxes equal to the same fleet on the CPU, and
+   its canvases/s per GPU and ms per pass; make_fused_render at V=64 (the
+   8 ratios 8 times), solid and gradient, canvases, boxes and scales equal
+   to the CPU run's (luma within rtol 1e-5), and K2 against its plain
+   version on the inputs that step gave it, bit-exact, timed; both bundles'
+   fused_multi_ratio_render on their own pixel budget, boxes equal to the
+   host oracle and within 2/255 of PIL; the CLI with --variants on the card
+   and the CPU, equal PNGs; then torch.profiler's split of a pass (K2, the
+   device solve, the luma, the rest) and the solve's launches per pass, at
+   V=8 and V=64;
+9. one JSON line of kernel results (each with its bound: the larger of the
    bytes it must move over 3.35 TB/s and its operations over 67 TFLOP/s,
    H100 SXM peaks from NVIDIA's data sheet), the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
@@ -1049,6 +1063,370 @@ def phase_ops(smi: str, ref):
     return _ops_k4_rows(smi, ref), _ops_row1(smi), _ops_row15(smi)
 
 
+#: the fleet's default ratios (pipeline/fleet.py) and four more users ask for
+VARIANT_RATIOS = ("9:16", "1:1", "16:9", "4:1", "4:5", "3:2", "2:3", "21:9")
+FLEET_BUDGET = (1920, 1080)
+FLEET_REPS = 20
+WIDE_V = 64
+PROFILE_REPS = 10
+CLI_VARIANTS = "1:1,16:9,4:1"
+
+
+def _column_root(bundle):
+    return {"type": "flex", "direction": "column", "children": [
+        {"object_id": oid, "name": bundle.meta[oid].label} for oid in bundle.object_ids()]}
+
+
+def _variant_step(bundle, ratios, background, device, budget=FLEET_BUDGET):
+    """The fleet's fused step for ``bundle`` over ``ratios`` at ``budget``
+    (pipeline/fused.make_fused_render, kernel "pallas") and its arguments on
+    ``device``."""
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.layout.canvas import compute_canvas_size
+    from image_transformation_tpu_torch.layout.solve import FlexProgram
+    from image_transformation_tpu_torch.pipeline import fused
+
+    sizes = [compute_canvas_size(budget, r, verbose=False) for r in ratios]
+    arrays = bundle.to_arrays()
+    prog = FlexProgram.from_dsl(_column_root(bundle))
+    objs, obj_wh, known = fused.map_bundle_to_program(prog, bundle, arrays)
+    bg, horizontal = fused.background_spec(
+        torch.from_numpy(np.array(bundle.background)).to(device), background)
+    step = fused.make_fused_render(
+        prog, (max(h for _, h in sizes), max(w for w, _ in sizes)), arrays.objects.shape[1:3],
+        kernel="pallas", background=background, gradient_horizontal=horizontal)
+    args = (torch.tensor(sizes, dtype=torch.int32, device=device), bg,
+            torch.from_numpy(objs).to(device), torch.from_numpy(obj_wh).to(device),
+            torch.from_numpy(known).to(device))
+    return prog, step, args
+
+
+def _assert_step_equal(name, card, plain):
+    """Canvases, boxes and scales byte-equal; the luma within rtol 1e-5."""
+    import torch
+
+    for label, a, b in zip(("canvases", "boxes", "scales"), card[:3], plain[:3]):
+        a = a.cpu()
+        if not torch.equal(a, b):
+            err = (a.to(torch.int64) - b.to(torch.int64)).abs().max().item()
+            raise AssertionError(f"[variants] {name}: {label} on the card != the CPU plain "
+                                 f"versions, max abs err {err}")
+    rel = ((card[3].cpu() - plain[3]).abs() / plain[3].abs().clamp(min=1e-30)).max().item()
+    if not rel <= 1e-5:
+        raise AssertionError(f"[variants] {name}: luma rel err {rel} > 1e-5")
+    return rel
+
+
+class _CaptureK2:
+    """Keeps a copy of K2's inputs at each call the fused step makes (the
+    plane as it was before the call), to hold K2 against its plain version
+    at the main path's shapes afterwards."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from image_transformation_tpu_torch.pipeline import fused
+
+        self._real = fused.fused_v3
+
+        def recording(plane, objs_p, meta, out_max_hw):
+            self.calls.append((plane.clone(), objs_p, meta.clone(), out_max_hw))
+            return self._real(plane, objs_p, meta, out_max_hw)
+
+        fused.fused_v3 = recording
+        return self
+
+    def __exit__(self, *exc):
+        from image_transformation_tpu_torch.pipeline import fused
+
+        fused.fused_v3 = self._real
+
+
+def _pil_variant(bundle, root, ratio):
+    """The reference's render of one ratio: the median colour of the
+    background's non-transparent pixels, the host oracle's boxes, PIL's
+    LANCZOS resize + alpha_composite."""
+    import numpy as np
+    from PIL import Image
+
+    from image_transformation_tpu_torch.layout.canvas import compute_canvas_size
+    from image_transformation_tpu_torch.layout.flex import solve_flex
+
+    W, H = compute_canvas_size(bundle.background.size, ratio, verbose=False)
+    bg = np.asarray(bundle.background.convert("RGBA"))
+    px = bg[bg[..., 3] > 0][:, :3]
+    color = tuple(int(np.median(px[:, c])) for c in range(3))
+    out = Image.new("RGBA", (W, H), color + (255,))
+    placements = solve_flex(root, (W, H), bundle.sizes())
+    for p in placements:
+        x1, y1, x2, y2 = p["box"]
+        obj = bundle.objects[int(p["object_id"])].resize(
+            (max(1, x2 - x1), max(1, y2 - y1)), Image.LANCZOS)
+        out.alpha_composite(obj, dest=(x1, y1))
+    return np.asarray(out), [p["box"] for p in placements]
+
+
+def variants_fleet(smi: str, device, tmp: Path, budget=FLEET_BUDGET, reps=FLEET_REPS):
+    """The fleet over both bundles x 8 ratios, its launch count read around
+    it, its files against the same fleet on the CPU."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.pipeline.fleet import run_fleet
+
+    bundles = [ROOT / "data" / "squarespace", ROOT / "data" / "audio_book"]
+    ck.reset_launch_counts()
+    card = run_fleet(bundles, VARIANT_RATIOS, output_root=tmp / "card",
+                     pixel_budget_size=budget, reps=reps, kernel="pallas", device=device)
+    torch.cuda.synchronize()
+    launches = ck.LAUNCHES["fused_v3"]
+    passes = len(bundles) * (reps + 1)
+    if launches < passes:
+        raise AssertionError(
+            f"[variants] the fleet launched K2 {launches} times in {passes} passes")
+    run_fleet(bundles, VARIANT_RATIOS, output_root=tmp / "cpu", pixel_budget_size=budget,
+              reps=1, kernel="pallas", device="cpu")
+    for b in bundles:
+        a, c = tmp / "card" / b.name, tmp / "cpu" / b.name
+        if (json.loads((a / "boxes.json").read_text())
+                != json.loads((c / "boxes.json").read_text())):
+            raise AssertionError(f"[variants] fleet {b.name}: boxes on the card != on the CPU")
+        for r in VARIANT_RATIOS:
+            name = f"variant_{r.replace(':', 'x')}.png"
+            if not np.array_equal(np.asarray(Image.open(a / name)),
+                                  np.asarray(Image.open(c / name))):
+                raise AssertionError(
+                    f"[variants] fleet {b.name} {r}: render on the card != on the CPU")
+    for stem, s in card["bundles"].items():
+        sizes = " ".join(f"{r} {w}x{h}" for r, (w, h) in s["canvas_sizes"].items())
+        print(f"[variants] fleet {stem} ({s['objects']} objects, {s['layout_source']}): "
+              f"{1e3 * s['seconds_per_pass']:.3f} ms per pass of {len(VARIANT_RATIOS)} "
+              f"canvases ({sizes})")
+    print(f"[variants] fleet {len(bundles)} bundles x {len(VARIANT_RATIOS)} ratios at pixel budget "
+          f"{budget[0]}x{budget[1]}, kernel pallas, reps {reps}: "
+          f"{card['canvases_per_sec_device']:.1f} canvases/s per GPU "
+          f"({card['total_canvases']} canvases in {card['device_seconds']:.3f} s, synchronized "
+          f"per bundle); K2 launched {launches} times in {passes} passes; PNGs and boxes == the "
+          f"CPU fleet's; on {card['device_name']}, {smi}")
+    return card, launches
+
+
+def variants_wide(smi: str, device, budget=FLEET_BUDGET, v=WIDE_V):
+    """The fused step at V = ``v`` (the 8 ratios repeated), solid and
+    gradient: the card's outputs == the CPU run's; K2 held against its plain
+    version on the inputs the step gave it, and timed."""
+    import torch
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+    bundle = load_bundle(ROOT / "data" / "squarespace")
+    ratios = [VARIANT_RATIOS[i % len(VARIANT_RATIOS)] for i in range(v)]
+    launches, k2 = 0, None
+    for background in ("solid", "gradient"):
+        _, step, args = _variant_step(bundle, ratios, background, device, budget)
+        ck.reset_launch_counts()
+        card = step(*args)
+        torch.cuda.synchronize()
+        n = ck.LAUNCHES["fused_v3"]
+        if n < 1:
+            raise AssertionError(f"[variants] V={v} {background}: K2 launched {n} times")
+        launches += n
+        with _CaptureK2() as cap:
+            step(*args)
+        plane, objs_p, meta, env = cap.calls[0]
+        plane_shape = tuple(plane.shape)
+        _, step_cpu, args_cpu = _variant_step(bundle, ratios, background, "cpu", budget)
+        rel = _assert_step_equal(f"V={v} {background}", card, step_cpu(*args_cpu))
+        step_ms = cuda_ms(lambda: step(*args), 3)
+        print(f"[variants] V={v} {background} (squarespace, h_max x w_max "
+              f"{card[0].shape[1]}x{card[0].shape[2]}, plane {plane_shape[1]}x{plane_shape[2]}, "
+              f"{4 * plane.numel() / 1e9:.2f} GB): canvases and boxes == the CPU run's, luma rel "
+              f"err {rel:.2e}; step {step_ms:.3f} ms ({v * 1e3 / step_ms:.1f} canvases/s) on {smi}")
+        if background == "solid":
+            out_k = ck.fused_v3(plane.clone(), objs_p, meta, env)
+            out_p = ck.fused_v3_reference(plane.clone(), objs_p, meta, env)
+            torch.cuda.synchronize()
+            err = _max_abs_err(out_k, out_p)
+            if not torch.equal(out_k, out_p):
+                raise AssertionError(f"[variants] V={v}: K2 != plain version, max abs err {err}")
+            del out_k, out_p
+            work_k, work_p = plane.clone(), plane.clone()
+            ms, plain_ms, raw = _in_turns(lambda: ck.fused_v3(work_k, objs_p, meta, env),
+                                          lambda: ck.fused_v3_reference(work_p, objs_p, meta, env),
+                                          5, 1)
+            k2 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      **k2_bound(plane, objs_p, meta, env))
+            print(f"[variants] K2 at V={v} (the step's inputs): K2 == plain (max abs err {err}); "
+                  f"K2 {ms:.3f} ms ({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms "
+                  f"({raw[2]:.3f}, {raw[3]:.3f}), {_bound_text(k2)} on {smi}")
+            del work_k, work_p
+        del card, plane, cap
+        torch.cuda.empty_cache()
+    return k2, launches
+
+
+def _device_events(prof, reps: int):
+    """(us per name, launches per name) of the profiler's device events,
+    per rep (a CPU op's own device time repeats its kernels', so only
+    device events count)."""
+    import torch
+
+    us, count = {}, {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = next(float(getattr(evt, a)) for a in ("self_device_time_total",
+                                                   "self_cuda_time_total") if hasattr(evt, a))
+        us[evt.key] = us.get(evt.key, 0.0) + t / reps
+        count[evt.key] = count.get(evt.key, 0) + evt.count / reps
+    return us, count
+
+
+def _profiled(fn, reps: int):
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    us, count = _device_events(prof, reps)
+    return us, count, wall_ms
+
+
+def variants_profile(smi: str, device):
+    """Where a pass's device time goes (torch.profiler): K2 against the
+    solve, the statistic and the rest (plane, meta, crop), and the solve's
+    launches per pass, at the fleet's V = 8 and at V = 64."""
+    import torch
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.layout.solve import solve_program
+    from image_transformation_tpu_torch.ops.compose_kernels import packed_luma_masked
+
+    bundle = load_bundle(ROOT / "data" / "squarespace")
+    for v in (len(VARIANT_RATIOS), WIDE_V):
+        ratios = [VARIANT_RATIOS[i % len(VARIANT_RATIOS)] for i in range(v)]
+        prog, step, args = _variant_step(bundle, ratios, "solid", device)
+        canvas_wh, _, _, obj_wh, known = args
+        us, _, wall_ms = _profiled(lambda: step(*args), PROFILE_REPS)
+        total = sum(us.values())
+        if total <= 0:
+            raise AssertionError(f"[variants] V={v}: the profiler saw no device time")
+        k2 = sum(t for name, t in us.items() if any(key in name for _, key in K2_LAUNCHES))
+        solve_us, solve_n, solve_wall = _profiled(
+            lambda: solve_program(prog, canvas_wh, obj_wh, known), PROFILE_REPS)
+        out = step(*args)[0]
+        crop = out.view(torch.int32).squeeze(-1)
+        luma_us, _, _ = _profiled(lambda: packed_luma_masked(crop, canvas_wh), PROFILE_REPS)
+        solve_t, luma_t = sum(solve_us.values()), sum(luma_us.values())
+        kernels = sum(n for name, n in solve_n.items() if not name.startswith("Memcpy")
+                      and not name.startswith("Memset"))
+        copies = sum(solve_n.values()) - kernels
+        rest = total - k2 - solve_t - luma_t
+        print(f"[variants] profile V={v} solid (torch.profiler, mean of {PROFILE_REPS}): step "
+              f"{wall_ms:.3f} ms host wall, device busy {total / 1e3:.3f} ms (idle share "
+              f"{1 - total / 1e3 / wall_ms:.3f}): K2 {k2 / 1e3:.3f} ms ({100 * k2 / total:.1f}%), "
+              f"solve {solve_t / 1e3:.3f} ms ({100 * solve_t / total:.1f}%), luma "
+              f"{luma_t / 1e3:.3f} ms ({100 * luma_t / total:.1f}%), plane + meta + crop "
+              f"{rest / 1e3:.3f} ms ({100 * rest / total:.1f}%) on {smi}")
+        print(f"[variants] device solve V={v}: {kernels:.0f} kernel launches and {copies:.0f} "
+              f"copies per pass, {solve_t:.1f} us of device time, {solve_wall:.3f} ms host wall "
+              f"per call on {smi}")
+        del out, crop
+        torch.cuda.empty_cache()
+
+
+def variants_pil(smi: str, device):
+    """fused_multi_ratio_render on each bundle's own pixel budget: boxes ==
+    the host oracle's, solid renders within 2/255 of PIL."""
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.pipeline import fused_multi_ratio_render
+
+    launches = 0
+    for name in ("squarespace", "audio_book"):
+        bundle = load_bundle(ROOT / "data" / name)
+        root = _column_root(bundle)
+        ck.reset_launch_counts()
+        renders, solved = fused_multi_ratio_render(bundle, root, list(VARIANT_RATIOS),
+                                                   device=device)
+        torch.cuda.synchronize()
+        launches += ck.LAUNCHES["fused_v3"]
+        worst = 0
+        for r in VARIANT_RATIOS:
+            ref, boxes = _pil_variant(bundle, root, r)
+            if solved[r].tolist() != boxes:
+                raise AssertionError(f"[variants] {name} {r}: boxes != the host oracle's")
+            if renders[r].shape != ref.shape:
+                raise AssertionError(f"[variants] {name} {r}: shape {renders[r].shape}")
+            worst = max(worst, int(np.abs(renders[r].astype(int) - ref.astype(int)).max()))
+        if worst > 2:
+            raise AssertionError(f"[variants] {name}: max err vs PIL {worst} > 2")
+        print(f"[variants] fused_multi_ratio_render {name} x {len(VARIANT_RATIOS)} ratios "
+              f"(its own pixel budget): boxes == layout.flex.solve_flex, max err vs PIL {worst} "
+              f"(limit 2) on {smi}")
+    return launches
+
+
+def variants_cli(smi: str, device, tmp: Path):
+    """The CLI with --variants, on the card and on the CPU: equal PNGs."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.pipeline.cli import main
+
+    args = ["--bundle", str(ROOT / "data" / "squarespace"), "--ratio", "9:16", "--api", "fake",
+            "--refine-iters", "1", "--variants", CLI_VARIANTS]
+    ck.reset_launch_counts()
+    card = main(args + ["--device", str(device), "--output-root", str(tmp / "cli_card")])
+    torch.cuda.synchronize()
+    launches = ck.LAUNCHES["fused_v3"]
+    if launches < 1:
+        raise AssertionError(f"[variants] the CLI's --variants launched K2 {launches} times")
+    plain = main(args + ["--device", "cpu", "--output-root", str(tmp / "cli_cpu")])
+    names = sorted(p.name for p in (card / "variants").glob("*.png"))
+    if names != sorted(p.name for p in (plain / "variants").glob("*.png")) or len(names) != 4:
+        raise AssertionError(f"[variants] the CLI wrote {names}")
+    for n in names:
+        if not np.array_equal(np.asarray(Image.open(card / "variants" / n)),
+                              np.asarray(Image.open(plain / "variants" / n))):
+            raise AssertionError(f"[variants] CLI {n}: the card's != the CPU's")
+    print(f"[variants] CLI --api fake --refine-iters 1 --variants {CLI_VARIANTS}: {names} == the "
+          f"CPU CLI's; K2 launched {launches} times on {smi}")
+    return launches
+
+
+def phase_variants(smi: str):
+    """The multi-ratio fused render at a fleet user's size: the fleet, the
+    wide batch, the oracle check, the CLI, and the profile."""
+    import torch
+
+    device = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as tmp:
+        fleet, fleet_launches = variants_fleet(smi, device, Path(tmp))
+        k2, wide_launches = variants_wide(smi, device)
+        pil_launches = variants_pil(smi, device)
+        cli_launches = variants_cli(smi, device, Path(tmp))
+    variants_profile(smi, device)
+    return k2, fleet_launches + wide_launches + pil_launches + cli_launches
+
+
 _CONTRACT = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -1070,6 +1448,7 @@ def main_smoke() -> int:
     hybrid, hybrid_launches, ref = phase_hybrid(smi)
     ops_rows, row1, row15 = phase_ops(smi, ref)
     del ref
+    variants_k2, variants_launches = phase_variants(smi)
     cli, serve = kernel["cli_9x16_b1"], kernel["serve_1080p_b64"]
     packed = {**hybrid, **{k: v for k, v in ops_rows.items() if k != "row2"}}
     print(f"[kernels] {LIBRARY_NOTE}")
@@ -1080,8 +1459,11 @@ def main_smoke() -> int:
                max_abs_err=max(r["max_abs_err"] for r in (cli, serve, *row1.values())),
                geometries={"row12_cli_9x16_b1": cli, "row12_1080p_b64": serve,
                            **{f"row1_{k}": v for k, v in row1.items()}}),
-        _entry("fused_v3", V3_SOURCE, V3_REPLACES, batched_launches["fused_v3"],
-               batched["fused_v3"]),
+        _entry("fused_v3", V3_SOURCE, V3_REPLACES,
+               batched_launches["fused_v3"] + variants_launches, batched["fused_v3"],
+               max_abs_err=max(batched["fused_v3"]["max_abs_err"], variants_k2["max_abs_err"]),
+               geometries={"sweep_1080p_b64": batched["fused_v3"],
+                           f"variants_1080p_v{WIDE_V}": variants_k2}),
         _entry("restore_windows", RESTORE_SOURCE, RESTORE_REPLACES,
                batched_launches["restore_windows"], batched["restore_windows"]),
         # the default clamped form (row 6); every row's numbers follow

@@ -470,6 +470,29 @@ def packed_luma(crop_i32: torch.Tensor) -> torch.Tensor:
     return (wr * sums[:, 0] + wg * sums[:, 1] + wb * sums[:, 2]) / max(1, H * W)
 
 
+def packed_luma_masked(crop_i32: torch.Tensor, canvas_wh) -> torch.Tensor:
+    """Masked mean Rec.709 luminance per canvas of a packed batch [B, H, W]
+    (port of compose_pallas.py:2121), float32.
+
+    Each canvas averages only its true (W, H) extent of the padded plane
+    (``canvas_wh`` [B, 2] as (W, H)): the multi-ratio path's out-of-canvas
+    area is garbage by construction. One weighted float32 luminance per
+    pixel, as JAX's, masked and reduced with ``torch.sum`` (never a
+    matmul-shaped accumulation, which loses bits once a partial sum passes
+    2^25)."""
+    _, H, W = crop_i32.shape
+    dev = crop_i32.device
+    px = crop_i32.view(torch.uint8).unflatten(-1, (W, 4))
+    wr, wg, wb = REC709
+    lum = (wr * px[..., 0].to(torch.float32) + wg * px[..., 1].to(torch.float32)
+           + wb * px[..., 2].to(torch.float32))
+    wh = torch.as_tensor(canvas_wh, device=dev).to(torch.int32)
+    row = torch.arange(H, dtype=torch.int32, device=dev)[None, :, None] < wh[:, 1, None, None]
+    col = torch.arange(W, dtype=torch.int32, device=dev)[None, None, :] < wh[:, 0, None, None]
+    denom = (wh[:, 0] * wh[:, 1]).to(torch.float32).clamp(min=1.0)
+    return torch.sum(lum * (row & col).to(torch.float32), dim=(1, 2)) / denom
+
+
 def _long(x, device=None) -> torch.Tensor:
     """int64 tensor of ``x`` (a tensor, or a host array copied once)."""
     if torch.is_tensor(x):

@@ -5,7 +5,8 @@ defaults as the reference macro_placement_test CLI (--image, --ratio,
 --align center|edge, --margin 0.05, --api auto|ollama|nebius, --samples,
 --temperature 1.0, --refine-iters 10), plus --bundle, --api fake (a
 hermetic run with a canned planner), --resume, --background and
---output-root, and one flag of its own:
+--output-root and --variants (after the run, re-render the final layout
+at every ratio in one fused pass into variants/), and one flag of its own:
 
     --device cuda|cpu   where the pixel work runs (default cuda; raises
                         when CUDA is asked for and no card is present)
@@ -81,6 +82,15 @@ def main(argv=None) -> Path:
     )
     parser.add_argument("--output-root", default=None, help="Artifact root directory")
     parser.add_argument(
+        "--variants",
+        default=None,
+        help=(
+            "Comma-separated extra aspect ratios (e.g. 1:1,16:9,4:1): after "
+            "the run, re-render the final layout at every ratio in ONE fused "
+            "device pass (solve+background+compose) into variants/"
+        ),
+    )
+    parser.add_argument(
         "--device", default="cuda",
         help="Device for the pixel work: 'cuda' (default; raises without a card) or 'cpu'",
     )
@@ -104,7 +114,7 @@ def main(argv=None) -> Path:
         install_fake_client(bundle_dir)
         api_type = "auto"
 
-    return run_macro_only(
+    base_out = run_macro_only(
         bundle_dir,
         args.ratio,
         args.align,
@@ -119,6 +129,50 @@ def main(argv=None) -> Path:
         background=args.background,
         device=device,
     )
+
+    if args.variants:
+        ratios = [args.ratio] + [
+            r.strip() for r in args.variants.split(",") if r.strip()
+        ]
+        render_variants(bundle_dir, base_out, ratios, background=args.background,
+                        device=device)
+    return base_out
+
+
+def render_variants(bundle_dir: Path, base_out: Path, ratios,
+                    background: str = "solid", device="cuda") -> Path:
+    """Re-render the run's final layout at several ratios in one fused
+    pass on ``device`` (K2 on a CUDA device); writes
+    ``variants/variant_WxH.png`` under the run dir and returns that dir."""
+    from ..core.bundle import load_bundle
+    from ..core.native_io import save_png
+    from .artifacts import latest_iteration
+    from .fused import fused_multi_ratio_render
+
+    last = latest_iteration(base_out)
+    if last is None:
+        raise FileNotFoundError(f"no iterations under {base_out}")
+    flex_json = None
+    for idx in range(last, -1, -1):
+        state = base_out / f"iteration_{idx:02d}" / "layout_json" / "loop_state.json"
+        if state.exists():
+            flex_json = json.loads(state.read_text()).get("flex_raw")
+            if flex_json and "root" in flex_json:
+                break
+    if not flex_json or "root" not in flex_json:
+        raise RuntimeError(f"no solved layout found under {base_out}")
+
+    bundle = load_bundle(bundle_dir)
+    renders, _boxes = fused_multi_ratio_render(
+        bundle, flex_json["root"], ratios, background=background, device=device
+    )
+    out_dir = base_out / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for ratio, arr in renders.items():
+        path = out_dir / f"variant_{ratio.replace(':', 'x')}.png"
+        save_png(arr, path)
+        print(f"[variants] {ratio}: {arr.shape[1]}x{arr.shape[0]} -> {path}")
+    return out_dir
 
 
 if __name__ == "__main__":
