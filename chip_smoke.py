@@ -76,7 +76,25 @@ exits non-zero:
    and the CPU, equal PNGs; then torch.profiler's split of a pass (K2, the
    device solve, the luma, the rest) and the solve's launches per pass, at
    V=8 and V=64;
-9. one JSON line of kernel results (each with its bound: the larger of the
+9. serving (serving/server.py in process on the card, over HTTP, at the
+   bundles' own sizes from their 970x250 backgrounds, e.g. 657x369 at
+   9:16; N = 4 objects on squarespace, 3 on audio_book): /healthz names
+   the card; /v1/render on both bundles x 9:16, 1:1, 16:9, 4:1 x solid,
+   gradient, PNG and raw, with K1's count read around it (> 0), each image
+   == the CPU service's (device "cpu") == PIL's own compose, tolerance 0;
+   128 distinct layouts on one key from 16 client threads: fewer
+   dispatches than requests (K1 with B > 1), every reply == its sequential
+   CPU render; /v1/render_batch (buffered and NDJSON) and /v1/render_fleet
+   at the 8 ratios of [variants] on both bundles, with K2's count read around them
+   (> 0), canvases and boxes == the CPU service's, canvases within 2/255 of
+   PIL (the max printed); then /v1/render's HTTP p50/p95 over 200
+   sequential requests, the median X-Render-Timings split, requests/s and
+   p50/p95 for 16 concurrent clients, render_batch's p50 at 8 ratios, and
+   measure_device_ms for one request and a merge of 8;
+10. agentic: run_workflow on the card with the fake client, squarespace
+   9:16, 2 iterations, K1's count read around it (> 0), every draft and
+   layout == the CPU run's, the drafts == PIL;
+11. one JSON line of kernel results (each with its bound: the larger of the
    bytes it must move over 3.35 TB/s and its operations over 67 TFLOP/s,
    H100 SXM peaks from NVIDIA's data sheet), the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
@@ -1427,6 +1445,371 @@ def phase_variants(smi: str):
     return k2, fleet_launches + wide_launches + pil_launches + cli_launches
 
 
+#: /v1/render's ratios and backgrounds in the [serving] phase
+SERVING_RATIOS = ("9:16", "1:1", "16:9", "4:1")
+SERVING_SEQUENTIAL = 200
+SERVING_CLIENTS = 16
+SERVING_MERGE_REQUESTS = 128
+SERVING_BATCH_REPS = 20
+
+
+def _post(base: str, path: str, payload: dict):
+    """(body bytes, headers) of one POST; raises on a non-200 reply."""
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 method="POST", headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        if r.status != 200:
+            raise AssertionError(f"[serving] {path} {payload}: HTTP {r.status}")
+        return r.read(), dict(r.headers)
+
+
+def _decode_png(body: bytes):
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(body)).convert("RGBA"))
+
+
+def _service_pil(service, stem, canvas_size, background, placements):
+    """PIL's own compose on the service's canvas: LANCZOS resize +
+    alpha_composite in list order."""
+    import numpy as np
+    from PIL import Image
+
+    bundle = service._bundle(stem)
+    canvas = Image.fromarray(service._canvas(bundle, canvas_size, background).cpu().numpy(),
+                             "RGBA")
+    for p in placements:
+        x1, y1, x2, y2 = (int(v) for v in p["box"])
+        canvas.alpha_composite(bundle.objects[int(p["object_id"])].resize(
+            (max(1, x2 - x1), max(1, y2 - y1)), Image.LANCZOS), dest=(x1, y1))
+    return np.asarray(canvas)
+
+
+def _merge_layouts(bundle_ids, n):
+    """``n`` distinct layouts on one bundle: column and row, eight gaps,
+    eight object subsets."""
+    subsets = [list(bundle_ids), list(bundle_ids[:2]), list(bundle_ids[1:]),
+               list(bundle_ids[::-1]), [bundle_ids[0]], [bundle_ids[-1]],
+               list(bundle_ids[::2]), list(bundle_ids[1::2])]
+    out = []
+    for direction in ("column", "row"):
+        for gap in (0, 3, 6, 10, 15, 21, 28, 36):
+            for ids in subsets:
+                out.append({"root": {"type": "flex", "direction": direction, "gap_px": gap,
+                                     "children": [{"object_id": i} for i in ids]}})
+    return out[:n]
+
+
+def _pct(samples, q):
+    s = sorted(samples)
+    return s[min(len(s) - 1, int(len(s) * q))]
+
+
+def serving_render(base, card, cpu, smi):
+    """/v1/render on both bundles x 4 ratios x {solid, gradient}, PNG and
+    raw, against the CPU service and PIL; K1's count read around it."""
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+    ck.reset_launch_counts()
+    replies = []
+    for stem in ("squarespace", "audio_book"):
+        for ratio in SERVING_RATIOS:
+            for background in ("solid", "gradient"):
+                req = {"bundle": stem, "ratio": ratio, "background": background}
+                png, _ = _post(base, "/v1/render", req)
+                raw, headers = _post(base, "/v1/render", {**req, "format": "raw"})
+                shape = tuple(int(v) for v in headers["X-Raw-Shape"].split(","))
+                replies.append((req, _decode_png(png),
+                                np.frombuffer(raw, np.uint8).reshape(shape)))
+    torch.cuda.synchronize()
+    launches = ck.LAUNCHES["fused_compose"]
+    if launches <= 0:
+        raise AssertionError(f"[serving] /v1/render launched K1 {launches} times")
+    for req, png, raw in replies:
+        placements, canvas_size, want = cpu.render(req["bundle"], req["ratio"],
+                                                   background=req["background"])
+        pil = _service_pil(cpu, req["bundle"], canvas_size, req["background"], placements)
+        for name, got in (("png", png), ("raw", raw)):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"[serving] /v1/render {req} {name}: != the CPU service")
+            if not np.array_equal(got, pil):
+                raise AssertionError(f"[serving] /v1/render {req} {name}: != PIL")
+    print(f"[serving] /v1/render: 2 bundles x {len(SERVING_RATIOS)} ratios x 2 backgrounds, "
+          f"PNG and raw ({len(replies) * 2} requests): == the CPU service == PIL (max abs err 0); "
+          f"K1 launched {launches} times on {smi}")
+    return launches
+
+
+def serving_merges(base, card, cpu, smi):
+    """128 distinct layouts on one key from 16 client threads: merged
+    dispatches, every reply == its sequential CPU render."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+    layouts = _merge_layouts(card._bundle("squarespace").object_ids(), SERVING_MERGE_REQUESTS)
+    before = card.coalescing_stats()
+    ck.reset_launch_counts()
+
+    def one(layout):
+        body, _ = _post(base, "/v1/render", {"bundle": "squarespace", "ratio": "9:16",
+                                             "layout": layout})
+        return _decode_png(body)
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=SERVING_CLIENTS) as pool:
+        outs = list(pool.map(one, layouts))
+    torch.cuda.synchronize()
+    launches = ck.LAUNCHES["fused_compose"]
+    after = card.coalescing_stats()
+    requests = after["requests"] - before["requests"]
+    dispatches = after["dispatches"] - before["dispatches"]
+    if requests != len(layouts) or not dispatches < requests:
+        raise AssertionError(f"[serving] merges: {dispatches} dispatches for {requests} requests")
+    for layout, out in zip(layouts, outs):
+        if not np.array_equal(out, cpu.render("squarespace", "9:16", layout)[2]):
+            raise AssertionError(f"[serving] merged render {layout}: != its CPU render")
+    print(f"[serving] {requests} distinct layouts from {SERVING_CLIENTS} clients on one key "
+          f"(squarespace 9:16 solid): {dispatches} dispatches (merged, K1 with B > 1), K1 "
+          f"launched {launches} times; every reply == its sequential CPU render on {smi}")
+    return launches
+
+
+def _batch_payload_arrays(payload):
+    import base64
+
+    return {r: (e["canvas"], e["boxes"], _decode_png(base64.b64decode(e["png_b64"])))
+            for r, e in payload.items()}
+
+
+def serving_batch(base, card, cpu, smi):
+    """/v1/render_batch (buffered and NDJSON) and /v1/render_fleet at 8
+    ratios on both bundles against the CPU service and PIL; K2's count read
+    around them."""
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+    ratios = list(VARIANT_RATIOS)
+    ck.reset_launch_counts()
+    got = {}
+    for stem in ("squarespace", "audio_book"):
+        body, _ = _post(base, "/v1/render_batch", {"bundle": stem, "ratios": ratios})
+        got[("batch", stem)] = _batch_payload_arrays(json.loads(body))
+        body, headers = _post(base, "/v1/render_batch", {"bundle": stem, "ratios": ratios,
+                                                         "stream": True})
+        if "ndjson" not in headers.get("Content-Type", ""):
+            raise AssertionError("[serving] render_batch stream: not NDJSON")
+        lines = [json.loads(ln) for ln in body.decode().splitlines() if ln]
+        got[("stream", stem)] = _batch_payload_arrays({ln.pop("ratio"): ln for ln in lines})
+    body, _ = _post(base, "/v1/render_fleet", {"bundles": ["squarespace", "audio_book"],
+                                               "ratios": ratios})
+    for stem, entry in json.loads(body).items():
+        got[("fleet", stem)] = _batch_payload_arrays(entry)
+    torch.cuda.synchronize()
+    launches = ck.LAUNCHES["fused_v3"]
+    if launches <= 0:
+        raise AssertionError(f"[serving] render_batch/fleet launched K2 {launches} times")
+    pil_err = 0
+    for (mode, stem), per_ratio in got.items():
+        want = cpu.render_batch(stem, ratios)
+        if list(per_ratio) != ratios:
+            raise AssertionError(f"[serving] {mode} {stem}: ratios {list(per_ratio)}")
+        for r, (canvas, boxes, img) in per_ratio.items():
+            (w, h), want_boxes, want_img = want[r]
+            if canvas != {"width": w, "height": h} or boxes != want_boxes:
+                raise AssertionError(f"[serving] {mode} {stem} {r}: boxes != the CPU service's")
+            if not np.array_equal(img, want_img):
+                raise AssertionError(f"[serving] {mode} {stem} {r}: canvas != the CPU service's")
+            placements = [{"object_id": oid, "box": b}
+                          for oid, b in zip(cpu._bundle(stem).object_ids(), boxes)]
+            pil = _service_pil(cpu, stem, (w, h), "solid", placements)
+            pil_err = max(pil_err, int(np.abs(img.astype(int) - pil.astype(int)).max()))
+    if pil_err > 2:
+        raise AssertionError(f"[serving] render_batch/fleet vs PIL: max abs err {pil_err} > 2")
+    print(f"[serving] /v1/render_batch (buffered and NDJSON) and /v1/render_fleet, 2 bundles x "
+          f"{len(ratios)} ratios: canvases and boxes == the CPU service's; max abs err vs PIL "
+          f"{pil_err} (limit 2); K2 launched {launches} times on {smi}")
+    return launches
+
+
+def serving_timings(base, card, smi):
+    """Latency and throughput of the daemon on the card (host clocks around
+    whole HTTP requests, each ending in its reply)."""
+    import concurrent.futures
+    import statistics
+
+    from image_transformation_tpu_torch.layout.canvas import compute_canvas_size
+
+    req = {"bundle": "squarespace", "ratio": "9:16"}
+    _post(base, "/v1/render", req)  # warm
+    lat, splits = [], []
+    for _ in range(SERVING_SEQUENTIAL):
+        t0 = time.perf_counter()
+        _, headers = _post(base, "/v1/render", req)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        splits.append(json.loads(headers["X-Render-Timings"]))
+    split = {k: statistics.median(float(t[k]) for t in splits)
+             for k in splits[0] if isinstance(splits[0][k], (int, float))}
+    print(f"[serving] /v1/render squarespace 9:16 PNG, {SERVING_SEQUENTIAL} sequential requests: "
+          f"p50 {_pct(lat, 0.5):.3f} ms, p95 {_pct(lat, 0.95):.3f} ms (HTTP end to end) on {smi}")
+    print("[serving] median X-Render-Timings split (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f" on {smi}")
+
+    layouts = _merge_layouts(card._bundle("squarespace").object_ids(), 64)
+    per_client = 20
+
+    def client(c):
+        out = []
+        for i in range(per_client):
+            t0 = time.perf_counter()
+            _post(base, "/v1/render", {**req, "layout": layouts[(c * per_client + i) % 64]})
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=SERVING_CLIENTS) as pool:
+        conc = [x for xs in pool.map(client, range(SERVING_CLIENTS)) for x in xs]
+    wall = time.perf_counter() - t0
+    print(f"[serving] /v1/render, {SERVING_CLIENTS} concurrent clients x {per_client} requests "
+          f"(64 layouts on one key): {len(conc) / wall:.1f} requests/s, p50 "
+          f"{_pct(conc, 0.5):.3f} ms, p95 {_pct(conc, 0.95):.3f} ms on {smi}")
+
+    batch = {"bundle": "squarespace", "ratios": list(VARIANT_RATIOS)}
+    _post(base, "/v1/render_batch", batch)
+    blat = []
+    for _ in range(SERVING_BATCH_REPS):
+        t0 = time.perf_counter()
+        _post(base, "/v1/render_batch", batch)
+        blat.append((time.perf_counter() - t0) * 1e3)
+    print(f"[serving] /v1/render_batch squarespace at {len(VARIANT_RATIOS)} ratios (PNG + base64 "
+          f"JSON), {SERVING_BATCH_REPS} requests: p50 {_pct(blat, 0.5):.3f} ms on {smi}")
+
+    canvas_size = compute_canvas_size((970, 250), "9:16", verbose=False)
+    engine = card._engine("squarespace", canvas_size, "solid")
+    sets = [card.solve("squarespace", "9:16", layouts[i])[0] for i in range(8)]
+    single = engine.measure_device_ms(sets[:1], reps=48)
+    merged = engine.measure_device_ms(sets, reps=48)
+    print(f"[serving] measure_device_ms (48 reps, one fence): single request {single:.4f} ms, "
+          f"merge of 8 {merged:.4f} ms ({merged / 8:.4f} ms per request) on {smi}")
+
+
+def phase_serving(smi: str) -> dict:
+    """The serving daemon in process on the card, driven over HTTP, against
+    the CPU service (the plain versions) and PIL; then its timings."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from image_transformation_tpu_torch.serving import ComposeService, serve
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as tmp:
+        card = ComposeService(ROOT / "data", Path(tmp) / "card.json", device="cuda")
+        cpu = ComposeService(ROOT / "data", Path(tmp) / "cpu.json", device="cpu")
+        daemon = serve(ROOT / "data", port=0, service=card)
+        thread = threading.Thread(target=daemon.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{daemon.server_address[1]}"
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            if not health["ok"] or torch.cuda.get_device_name(0) not in health["device"]:
+                raise AssertionError(f"[serving] /healthz does not name the card: {health}")
+            print(f"[serving] /healthz: {health}")
+            k1 = serving_render(base, card, cpu, smi)
+            k1 += serving_merges(base, card, cpu, smi)
+            k2 = serving_batch(base, card, cpu, smi)
+            serving_timings(base, card, smi)
+        finally:
+            daemon.shutdown()
+            daemon.server_close()
+            thread.join(timeout=60)
+            for t in threading.enumerate():
+                if t.name == "coalescer-drain":
+                    t.join(120)
+        stats = card.stats()
+        print(f"[serving] /v1/stats dispatch_floor {stats['dispatch_floor']}, coalescing "
+              f"{card.coalescing_stats()}")
+    return {"fused_compose": k1, "fused_v3": k2}
+
+
+def phase_agentic(smi: str) -> int:
+    """The agentic loop on the card (fake client, squarespace 9:16, 2
+    iterations): its drafts against the CPU run and PIL; K1's count read
+    around it."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from image_transformation_tpu_torch.agentic import run_workflow
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.vlm.client import FakeClient, register_fake_client
+
+    bundle = load_bundle(ROOT / "data" / "squarespace")
+    layout = {"root": {"type": "flex", "direction": "column", "gap_px": 4, "children": [
+        {"object_id": oid, "name": bundle.meta[oid].label} for oid in bundle.object_ids()]}}
+    micro = {"message": {"content": "", "tool_calls": [
+        {"id": f"c{i}", "function": {"name": name, "arguments": json.dumps(args)}}
+        for i, (name, args) in enumerate((("adjust_x", {"object": "logo", "pixels": 10}),
+                                          ("adjust_y", {"object": "4", "pixels": -5})))]}}
+    script = [json.dumps(layout), "Score: 7/10\nmove the logo", micro,
+              "Score: 8/10\nnudge again", micro, "Score: 9/10\nLooks good."]
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_agentic_") as tmp:
+        for device in ("cuda", "cpu"):
+            register_fake_client(lambda: FakeClient(script))
+            try:
+                if device == "cuda":
+                    ck.reset_launch_counts()
+                t0 = time.perf_counter()
+                run_workflow(ROOT / "data" / "squarespace", "9:16", Path(tmp) / device,
+                             max_iterations=2, device=device)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    launches = ck.LAUNCHES["fused_compose"]
+                    seconds = time.perf_counter() - t0
+            finally:
+                register_fake_client(None)
+            root = Path(tmp) / device / "squarespace"
+            runs[device] = [
+                (np.asarray(Image.open(it / "final_product" / f"draft_macro_iter_{it.name[-2:]}.png")),
+                 json.loads((it / "layout_json" / f"layout_macro_iter_{it.name[-2:]}.json")
+                            .read_text()))
+                for it in sorted(root.glob("iteration_*"))]
+    if launches <= 0:
+        raise AssertionError(f"[agentic] K1 launched {launches} times")
+    if len(runs["cuda"]) != 3 or len(runs["cpu"]) != 3:
+        raise AssertionError(f"[agentic] drafts: {len(runs['cuda'])} on the card, "
+                             f"{len(runs['cpu'])} on the CPU (3 expected)")
+    bg = np.asarray(bundle.background.convert("RGBA"))
+    color = tuple(int(np.median(bg[bg[..., 3] > 0][:, c])) for c in range(3))
+    for i, ((got, lay), (want, want_lay)) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        pil = Image.new("RGBA", (got.shape[1], got.shape[0]), color + (255,))
+        for p in lay["placements"]:
+            pil.alpha_composite(bundle.objects[p["object_id"]], dest=tuple(p["box"][:2]))
+        if lay != want_lay or not np.array_equal(got, want):
+            raise AssertionError(f"[agentic] iteration {i}: the card's draft != the CPU run's")
+        if not np.array_equal(got, np.asarray(pil)):
+            raise AssertionError(f"[agentic] iteration {i}: the card's draft != PIL")
+    print(f"[agentic] run_workflow squarespace 9:16, fake client, 2 iterations on the card: "
+          f"{len(runs['cuda'])} drafts == the CPU run's == PIL (max abs err 0); K1 launched "
+          f"{launches} times; {seconds:.3f} s for the run on {smi}")
+    return launches
+
+
 _CONTRACT = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -1449,18 +1832,22 @@ def main_smoke() -> int:
     ops_rows, row1, row15 = phase_ops(smi, ref)
     del ref
     variants_k2, variants_launches = phase_variants(smi)
+    serving_launches = phase_serving(smi)
+    agentic_launches = phase_agentic(smi)
     cli, serve = kernel["cli_9x16_b1"], kernel["serve_1080p_b64"]
     packed = {**hybrid, **{k: v for k, v in ops_rows.items() if k != "row2"}}
     print(f"[kernels] {LIBRARY_NOTE}")
     print(json.dumps({"kernels": [
         _entry("fused_compose", KERNEL_SOURCE,
                f"{KERNEL_REPLACES} (kernel-table row 12), {KERNEL_REPLACES_ROW1}",
-               launches["fused_compose"] + sum(r["launches"] for r in row1.values()), cli,
+               launches["fused_compose"] + sum(r["launches"] for r in row1.values())
+               + serving_launches["fused_compose"] + agentic_launches, cli,
                max_abs_err=max(r["max_abs_err"] for r in (cli, serve, *row1.values())),
                geometries={"row12_cli_9x16_b1": cli, "row12_1080p_b64": serve,
                            **{f"row1_{k}": v for k, v in row1.items()}}),
         _entry("fused_v3", V3_SOURCE, V3_REPLACES,
-               batched_launches["fused_v3"] + variants_launches, batched["fused_v3"],
+               batched_launches["fused_v3"] + variants_launches + serving_launches["fused_v3"],
+               batched["fused_v3"],
                max_abs_err=max(batched["fused_v3"]["max_abs_err"], variants_k2["max_abs_err"]),
                geometries={"sweep_1080p_b64": batched["fused_v3"],
                            f"variants_1080p_v{WIDE_V}": variants_k2}),

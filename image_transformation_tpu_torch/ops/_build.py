@@ -27,6 +27,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import List, Optional
@@ -37,6 +38,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _LIB: Optional[ctypes.CDLL] = None
+#: held while the library is built and loaded: the threaded server's first
+#: concurrent requests run nvcc once, and every other thread waits for it
+_LIB_LOCK = threading.Lock()
 #: seconds the last build took in this process (0.0 when the .so existed)
 last_build_seconds = 0.0
 #: ptxas's report of the last verbose build in this process ("" otherwise)
@@ -147,8 +151,10 @@ def ptxas_usage(report: str) -> dict:
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' shared library, once."""
+    """Build (if needed) and load the kernels' shared library, once per
+    process, whichever thread asks first."""
     global _LIB
-    if _LIB is None:
-        _LIB = ctypes.CDLL(str(build(verbose=verbose)))
-    return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            _LIB = ctypes.CDLL(str(build(verbose=verbose)))
+        return _LIB

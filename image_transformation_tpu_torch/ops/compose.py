@@ -6,11 +6,13 @@ tables) and alpha-over it onto the canvas, honoring list order (z-order).
 Alpha-over replicates Pillow's fixed-point arithmetic (AlphaComposite.c,
 PRECISION_BITS=7) in int32, so compositing is bit-exact vs PIL.
 
-These are the plain PyTorch versions: the engine's compose on a CUDA
-device goes through the hand-written kernel in ops/compose_kernels.py,
-whose CPU path is built from the functions here. :func:`composite_canvas`
-/ :func:`composite_batch` are the JAX package's XLA-path composite, with
-tables from the traced f32 table code.
+The host-table composes (:func:`composite_exact`,
+:func:`composite_canvas_tables_indexed`) go through K1's wrapper
+(``ops/compose_kernels.fused_compose``): the kernel for a CUDA canvas, its
+plain version, built from the functions here, for a CPU canvas.
+:func:`composite_canvas` / :func:`composite_batch` are the JAX package's
+XLA-path composite, with tables from the traced f32 table code, in plain
+PyTorch.
 
 Unlike the JAX package, :func:`_blend_window` writes into the canvas it is
 given (saving a full-canvas copy per placement); the public ``composite_*``
@@ -107,17 +109,17 @@ def composite_canvas_tables_indexed(
     boxes [N, 4] (x1, y1, x2, y2); kh_i32 [N, Wout_max, Wm];
     kv_i32 [N, Hout_max, Hm]; same_size [N] (Pillow identity shortcut).
     Returns a new uint8 [H, W, 4] tensor; the input canvas is not modified.
-    Runs K1's plain version (B=1) on the canvas's device.
+    Runs K1 (B=1) on a CUDA canvas, its plain version on a CPU canvas.
     """
     # compose_kernels builds on this module, so it is imported late
-    from .compose_kernels import FLAG_IDENTITY, FLAG_LIVE, fused_compose_reference
+    from .compose_kernels import FLAG_IDENTITY, FLAG_LIVE, fused_compose
 
     dev = canvas_u8.device
-    work = canvas_u8.to(torch.uint8).clone()
+    work = canvas_u8.to(torch.uint8).clone(memory_format=torch.contiguous_format)
     perm = torch.as_tensor(perm, dtype=torch.long, device=objs_all.device)
     flags = [FLAG_LIVE | (FLAG_IDENTITY if bool(s) else 0) for s in same_size]
-    fused_compose_reference(
-        work[None], objs_all.to(torch.uint8)[perm][None].to(dev),
+    fused_compose(
+        work[None], objs_all.to(torch.uint8)[perm][None].to(dev).contiguous(),
         kh_i32.to(dev, torch.int32).contiguous()[None],
         kv_i32.to(dev, torch.int32).contiguous()[None],
         torch.as_tensor(np.asarray(boxes.cpu() if torch.is_tensor(boxes) else boxes),
@@ -229,8 +231,9 @@ def composite_exact(
     tables are built bit-exactly on the host and moved to the canvas's
     device. objs_u8 [N, Hm, Wm, 4]; obj_hw [N, 2] (h, w); boxes [N, 4].
     Unlike the engine, boxes may upscale: ``out_max_hw`` defaults to the
-    larger of the pad envelope and the largest box. Returns a new canvas."""
-    from .compose_kernels import fused_compose_reference, fused_tables_prep
+    larger of the pad envelope and the largest box. Runs K1 on a CUDA
+    canvas, its plain version on a CPU canvas. Returns a new canvas."""
+    from .compose_kernels import fused_compose, fused_tables_prep
 
     n, pad_h, pad_w = objs_u8.shape[0], objs_u8.shape[1], objs_u8.shape[2]
     if out_max_hw is None:
@@ -243,8 +246,8 @@ def composite_exact(
         (canvas_u8.shape[0], canvas_u8.shape[1]), (pad_h, pad_w), out_max_hw,
     )
     dev = canvas_u8.device
-    work = canvas_u8.to(torch.uint8).clone()
-    fused_compose_reference(
+    work = canvas_u8.to(torch.uint8).clone(memory_format=torch.contiguous_format)
+    fused_compose(
         work[None], objs_u8.to(dev, torch.uint8).contiguous()[None],
         *(torch.from_numpy(a).to(dev) for a in tables),
     )

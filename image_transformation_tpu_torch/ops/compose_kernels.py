@@ -58,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -225,20 +226,25 @@ _RESTYPES = {"fused_compose_scratch_bytes": ctypes.c_longlong,
 
 
 _ENTRIES = {}
+_ENTRIES_LOCK = threading.Lock()
 
 
 def _kernel_entry(name: str):
     """The C entry ``name`` of the kernels' library (built on first use),
     with its argument and result types set: pointers and the stream as
-    c_void_p, the result a CUDA error code unless ``_RESTYPES`` says else."""
+    c_void_p, the result a CUDA error code unless ``_RESTYPES`` says else.
+    Thread-safe: an entry is published only once its types are set."""
     fn = _ENTRIES.get(name)
     if fn is None:
         from ._build import load_library
 
-        fn = getattr(load_library(), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = _RESTYPES.get(name, ctypes.c_int)
-        _ENTRIES[name] = fn
+        with _ENTRIES_LOCK:
+            fn = _ENTRIES.get(name)
+            if fn is None:
+                fn = getattr(load_library(), name)
+                fn.argtypes = _ARGTYPES[name]
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
+                _ENTRIES[name] = fn
     return fn
 
 
