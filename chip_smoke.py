@@ -94,7 +94,23 @@ exits non-zero:
 10. agentic: run_workflow on the card with the fake client, squarespace
    9:16, 2 iterations, K1's count read around it (> 0), every draft and
    layout == the CPU run's, the drafts == PIL;
-11. one JSON line of kernel results (each with its bound: the larger of the
+11. mesh (parallel/mesh.py on torch.distributed): two gloo ranks, both on
+   cuda:0 (spawned; NCCL refuses two ranks on one card), then a world of
+   one over nccl in this process (make_mesh with no torchrun world). Each
+   rank runs make_sharded_solid_render at 1080x1920, B=64 in all
+   (squarespace objects shared, boxes from seed 0), make_sharded_fused_render
+   (pallas, masked) at the [variants] fleet size with 7 of the 8 ratios
+   padded to 8 per bundle, run_fleet(mesh=) over both bundles x 8 ratios,
+   and the sharded merge (sharded_compose_many) of 8 placement sets on
+   serving's 657x369 canvas; K2's (K1's for the merge) count is reset just
+   before each and read just after (> 0 in every rank), each output equals
+   the single-GPU run byte for byte (luma within rtol 1e-5; rank 0 holds
+   the fleet's PNGs and boxes against the single-GPU fleet's), and the
+   step's and the all-reduce's ms are printed;
+12. ui: the port's headless main app on the card (squarespace 9:16, fake
+   client, 2 refinements) with K1's count read around it (> 0), its drafts
+   == PIL; compat.compositor.composite on the card == PIL, K1 launched once;
+13. one JSON line of kernel results (each with its bound: the larger of the
    bytes it must move over 3.35 TB/s and its operations over 67 TFLOP/s,
    H100 SXM peaks from NVIDIA's data sheet), the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
@@ -340,7 +356,13 @@ def _pil_draft(bundle, canvas_png: Path, placements):
     """PIL's own compose: LANCZOS resize + alpha_composite, list order."""
     from PIL import Image
 
-    canvas = Image.open(canvas_png).convert("RGBA")
+    return _pil_compose(bundle, Image.open(canvas_png).convert("RGBA"), placements)
+
+
+def _pil_compose(bundle, canvas, placements):
+    """PIL's own compose onto the RGBA ``canvas`` (in place, returned)."""
+    from PIL import Image
+
     for p in placements:
         oid = int(p["object_id"])
         if oid not in bundle.objects:
@@ -1810,6 +1832,335 @@ def phase_agentic(smi: str) -> int:
     return launches
 
 
+MESH_B = 64
+MESH_MERGE_B = 8
+MESH_REPS = 5
+MESH_SECONDS = 300
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of ``fn()`` followed by a synchronize, after one
+    warm-up run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _counted(fn):
+    """``fn()`` with the launch counts reset just before and read just after."""
+    import torch
+
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ck.LAUNCHES)
+
+
+def _mesh_solid(mesh, dev):
+    """make_sharded_solid_render at 1080x1920, B = MESH_B (squarespace
+    objects shared, boxes from seed 0) against the single-GPU render."""
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.parallel.mesh import shard_batched
+    from image_transformation_tpu_torch.parallel.sweep import (
+        make_sharded_solid_render,
+        random_downscale_boxes,
+    )
+
+    arrays = load_bundle(ROOT / "data" / "squarespace").to_arrays()
+    H, W = BATCH_HW
+    N = arrays.obj_hw.shape[0]
+    rng = np.random.default_rng(0)
+    boxes = np.stack([random_downscale_boxes(rng, arrays.obj_hw, (H, W)) for _ in range(MESH_B)])
+    hw = np.broadcast_to(arrays.obj_hw, (MESH_B, N, 2)).copy()
+    objs_p = ck.planarize_objects(torch.from_numpy(arrays.objects).to(dev)[None])
+    pad = arrays.objects.shape[1:3]
+    step = make_sharded_solid_render(mesh, (H, W), pad)
+    (plane, luma), counts = _counted(lambda: step(objs_p, hw, boxes))
+    whole = ck.render_solid_fused_v3_program(
+        objs_p, torch.from_numpy(hw).to(dev), torch.from_numpy(boxes).to(dev), (H, W),
+        ck.pack_rgba_scalar((128, 128, 128, 255)), pad)
+    want_luma = float(ck.packed_luma(whole[:, :H, :W]).mean())
+    return {"launches": counts["fused_v3"], "equal": bool(torch.equal(
+                plane, shard_batched(mesh).local(whole))),
+            "luma": [float(luma[0]), want_luma], "local_b": int(plane.shape[0]),
+            "step_ms": _host_ms(lambda: step(objs_p, hw, boxes), MESH_REPS),
+            "all_reduce_ms": _host_ms(
+                lambda: mesh.all_reduce_sum(torch.zeros(1, device=dev), "data"), MESH_REPS)}
+
+
+def _mesh_fused(mesh, dev, tmp: Path):
+    """The sharded fused render at the [variants] fleet size: per bundle,
+    the first 7 of the 8 ratios padded to 8 and masked (ragged) against the
+    single-GPU step; then run_fleet(mesh=) over both bundles x 8 ratios,
+    whose tree rank 0 holds against the single-GPU fleet's."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.parallel.mesh import shard_batched
+    from image_transformation_tpu_torch.pipeline import fused
+    from image_transformation_tpu_torch.pipeline.fleet import run_fleet
+
+    res = {"launches": 0, "equal": True, "luma": [], "step_ms": [], "all_reduce_ms": None}
+    batch = shard_batched(mesh)
+    for name in ("squarespace", "audio_book"):
+        bundle = load_bundle(ROOT / "data" / name)
+        prog, single, args = _variant_step(bundle, VARIANT_RATIOS[:-1], "solid", dev)
+        wh, valid = fused.pad_ragged_variants(args[0].cpu().numpy(), mesh.size())
+        h_max, w_max = (int(wh[:, 1].max()), int(wh[:, 0].max()))
+        arrays = bundle.to_arrays()
+        step = fused.make_sharded_fused_render(mesh, prog, (h_max, w_max),
+                                               arrays.objects.shape[1:3], masked=True,
+                                               kernel="pallas")
+        margs = (wh, *args[1:], valid)
+        (out, boxes, luma), counts = _counted(lambda: step(*margs))
+        res["launches"] += counts["fused_v3"]
+        want = single(torch.from_numpy(wh).to(dev), *args[1:])
+        res["equal"] &= bool(torch.equal(out, batch.local(want[0]))
+                             and torch.equal(boxes, batch.local(want[1])))
+        res["luma"].append([float(luma[0]), float(want[3][:len(VARIANT_RATIOS) - 1].mean())])
+        res["step_ms"].append(_host_ms(lambda: step(*margs), MESH_REPS))
+    res["all_reduce_ms"] = _host_ms(
+        lambda: mesh.all_reduce_sum(torch.zeros(2, device=dev), "data"), MESH_REPS)
+    bundles = [ROOT / "data" / "squarespace", ROOT / "data" / "audio_book"]
+    fleet, counts = _counted(lambda: run_fleet(
+        bundles, VARIANT_RATIOS, output_root=tmp / f"fleet_{mesh.size()}", mesh=mesh,
+        pixel_budget_size=FLEET_BUDGET, kernel="pallas"))
+    res["launches"] += counts["fused_v3"]
+    res["fleet_ms_per_pass"] = [1e3 * b["seconds_per_pass"] for b in fleet["bundles"].values()]
+    if mesh.rank == 0:
+        one = tmp / f"fleet_single_{mesh.size()}"
+        run_fleet(bundles, VARIANT_RATIOS, output_root=one, pixel_budget_size=FLEET_BUDGET,
+                  kernel="pallas", device=dev)
+        for b in bundles:
+            a, c = tmp / f"fleet_{mesh.size()}" / b.name, one / b.name
+            res["equal"] &= (json.loads((a / "boxes.json").read_text())
+                             == json.loads((c / "boxes.json").read_text()))
+            for r in VARIANT_RATIOS:
+                name = f"variant_{r.replace(':', 'x')}.png"
+                res["equal"] &= bool(np.array_equal(np.asarray(Image.open(a / name)),
+                                                    np.asarray(Image.open(c / name))))
+    return res
+
+
+def _mesh_merge(mesh, dev):
+    """The sharded merge: MESH_MERGE_B placement sets on serving's 9:16
+    canvas, split over the ranks, against the engine's compose of each."""
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.layout.canvas import compute_canvas_size
+    from image_transformation_tpu_torch.ops.background import synthesize_canvas
+    from image_transformation_tpu_torch.parallel.mesh import shard_batched
+    from image_transformation_tpu_torch.parallel.sweep import (
+        random_downscale_boxes,
+        sharded_compose_many,
+    )
+    from image_transformation_tpu_torch.pipeline.engine import ComposeEngine
+
+    bundle = load_bundle(ROOT / "data" / "squarespace")
+    arrays = bundle.to_arrays()
+    W, H = compute_canvas_size(bundle.background.size, "9:16", verbose=False)
+    canvas = synthesize_canvas(torch.from_numpy(np.asarray(bundle.background).copy()).to(dev),
+                               W, H, "solid")
+    engine = ComposeEngine(arrays, canvas, dev)
+    rng = np.random.default_rng(0)
+    ids = [int(i) for i in arrays.object_ids[:arrays.n_valid]]
+    sets = []
+    for i in range(MESH_MERGE_B):
+        boxes = random_downscale_boxes(rng, arrays.obj_hw, (H, W))
+        n = 1 + i % len(ids)
+        sets.append([{"object_id": oid, "box": boxes[k].tolist()}
+                     for k, oid in enumerate(ids[:n])])
+    lives = [engine.validate_placements(ps) for ps in sets]
+    per = [engine.indexed_args_np(live, len(ids)) for live in lives]
+    stacked = [torch.from_numpy(np.stack([a[i] for a in per])).to(dev) for i in range(5)]
+    objs = torch.from_numpy(arrays.objects).to(dev)
+    out, counts = _counted(lambda: sharded_compose_many(mesh, canvas, objs, *stacked))
+    mine = shard_batched(mesh).local(np.arange(MESH_MERGE_B))
+    equal = all(torch.equal(out[j], engine.compose(lives[i])) for j, i in enumerate(mine))
+    return {"launches": counts["fused_compose"], "equal": equal, "canvas": [H, W],
+            "local_b": int(out.shape[0]),
+            "step_ms": _host_ms(lambda: sharded_compose_many(mesh, canvas, objs, *stacked),
+                                MESH_REPS)}
+
+
+def mesh_rank(rank: int, tmp: str, world: int, backend: str) -> None:
+    """One rank of the [mesh] phase on cuda:0: gloo over a file store for a
+    world of ``world`` > 1, or make_mesh's own world of one for nccl. Writes
+    its results to ``<tmp>/mesh_<backend>_<world>_<rank>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from image_transformation_tpu_torch.parallel.mesh import make_mesh
+
+    tmp = Path(tmp)
+    dev = torch.device("cuda", 0)
+    if world > 1:
+        dist.init_process_group(backend, init_method=f"file://{tmp / f'store_{backend}'}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=120))
+    mesh = make_mesh(device=dev, backend=backend)
+    try:
+        res = {"mesh": repr(mesh), "backend": mesh.backend, "world": mesh.size(),
+               "solid": _mesh_solid(mesh, dev), "fused": _mesh_fused(mesh, dev, tmp),
+               "merge": _mesh_merge(mesh, dev)}
+    finally:
+        mesh.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (tmp / f"mesh_{backend}_{world}_{rank}.json").write_text(json.dumps(res))
+
+
+def phase_mesh(smi: str) -> dict:
+    """Two gloo ranks both on cuda:0 (spawned; NCCL refuses two ranks on one
+    card), then a world of one over nccl in this process: each rank's K1/K2
+    launches (> 0), outputs == the single-GPU run's (luma within rtol 1e-5),
+    and its step and all-reduce times."""
+    import torch.multiprocessing as mp
+
+    out = {"fused_compose": 0, "fused_v3": 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        ctx = mp.start_processes(mesh_rank, args=(tmp, 2, "gloo"), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MESH_SECONDS
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"[mesh] the gloo ranks ran past {MESH_SECONDS} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        mesh_rank(0, tmp, 1, "nccl")
+        runs = [("gloo", 2, r) for r in range(2)] + [("nccl", 1, 0)]
+        for backend, world, rank in runs:
+            res = json.loads((Path(tmp) / f"mesh_{backend}_{world}_{rank}.json").read_text())
+            if res["backend"] != backend:
+                raise AssertionError(f"[mesh] asked for {backend}, ran {res['backend']}")
+            tag = f"[mesh] {backend} world {world} rank {rank} on cuda:0"
+            s, f, m = res["solid"], res["fused"], res["merge"]
+            for name, part, kernel in (("solid render", s, "K2"), ("fused render", f, "K2"),
+                                       ("merge", m, "K1")):
+                if part["launches"] <= 0 or not part["equal"]:
+                    raise AssertionError(f"{tag}: {name} launched {kernel} "
+                                         f"{part['launches']} times, equal {part['equal']}")
+            for got, want in [s["luma"], *f["luma"]]:
+                if abs(got - want) > 1e-5 * abs(want):
+                    raise AssertionError(f"{tag}: luma {got} != single-GPU {want} (rtol 1e-5)")
+            print(f"{tag}: make_sharded_solid_render {BATCH_HW[0]}x{BATCH_HW[1]} B={MESH_B} "
+                  f"({s['local_b']} here): K2 launched {s['launches']} times, planes == the "
+                  f"single-GPU render, luma {s['luma'][0]:.6f} vs {s['luma'][1]:.6f}; step "
+                  f"{s['step_ms']:.3f} ms, all-reduce (1 float) {s['all_reduce_ms']:.3f} ms")
+            print(f"{tag}: make_sharded_fused_render (pallas, masked) 7 ratios padded to 8 at "
+                  f"{FLEET_BUDGET[0]}x{FLEET_BUDGET[1]}, both bundles: K2 launched "
+                  f"{f['launches']} times with run_fleet(mesh=) over 8 ratios; canvases and "
+                  f"boxes == the single-GPU step, fleet PNGs and boxes == the single-GPU "
+                  f"fleet (rank 0); step {', '.join(f'{x:.3f}' for x in f['step_ms'])} ms, "
+                  f"fleet pass {', '.join(f'{x:.3f}' for x in f['fleet_ms_per_pass'])} ms, "
+                  f"all-reduce (2 floats) {f['all_reduce_ms']:.3f} ms")
+            print(f"{tag}: sharded merge B={MESH_MERGE_B} ({m['local_b']} here) at "
+                  f"{m['canvas'][0]}x{m['canvas'][1]}: K1 launched {m['launches']} times, "
+                  f"== the engine's compose of each set; step {m['step_ms']:.3f} ms "
+                  f"(no all-reduce)")
+            out["fused_compose"] += m["launches"]
+            out["fused_v3"] += s["launches"] + f["launches"]
+    print(f"[mesh] every rank launched its kernels and equals the single-GPU run on {smi}")
+    return out
+
+
+def phase_ui(smi: str) -> int:
+    """The port's headless main app on the card (squarespace 9:16, fake
+    client, 2 refinements) with K1's count read around it, its drafts ==
+    PIL; compat.compositor.composite on the card == PIL."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from image_transformation_tpu_torch.compat import compositor
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.ui import app, headless
+    from image_transformation_tpu_torch.vlm.client import register_fake_client
+
+    bundle = load_bundle(ROOT / "data" / "squarespace")
+    bg = np.asarray(bundle.background.convert("RGBA"))
+    color = tuple(int(np.median(bg[bg[..., 3] > 0][:, c])) for c in range(3))
+    saved = app.REPO_ROOT
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ui_") as tmp:
+        root = Path(tmp)
+        (root / "data").symlink_to(ROOT / "data")
+        (root / "input").mkdir()
+        shutil.copy(ROOT / "input" / "squarespace.jpg", root / "input" / "squarespace.jpg")
+        app.REPO_ROOT = root
+        try:
+            st = headless.HeadlessStreamlit()
+            headless.run_app("main", st, {"select_squarespace.jpg": True}, device="cuda")
+            (_, counts) = _counted(lambda: headless.run_app("main", st, {
+                "VLM backend": "fake (hermetic)", "Refine iterations": 2,
+                "Run macro placement": True}, device="cuda"))
+        finally:
+            app.REPO_ROOT = saved
+            register_fake_client(None)
+        if not st.session_state.get("has_run"):
+            raise AssertionError(f"[ui] the main app did not run:\n{st.transcript()}")
+        launches = counts["fused_compose"]
+        run = root / "output_macro_placement" / "squarespace"
+        drafts = sorted(run.glob("iteration_*/final_product/draft_macro_iter_*.png"))
+        if launches <= 0 or not drafts:
+            raise AssertionError(f"[ui] K1 launched {launches} times, {len(drafts)} drafts")
+        for d in drafts:
+            it = d.name[-6:-4]
+            lay = json.loads((d.parents[1] / "layout_json" / f"layout_macro_iter_{it}.json")
+                             .read_text())
+            got = np.asarray(Image.open(d))
+            pil = _pil_compose(bundle, Image.new("RGBA", (got.shape[1], got.shape[0]),
+                                                 color + (255,)), lay["placements"])
+            if not np.array_equal(got, np.asarray(pil)):
+                raise AssertionError(f"[ui] draft {d.name} != PIL")
+        iterations = len(list(run.glob("iteration_*")))
+    print(f"[ui] headless main app, squarespace 9:16, fake client, 2 refinements on the card: "
+          f"{iterations} iterations, {len(drafts)} draft(s) == PIL (max abs err 0); K1 launched "
+          f"{launches} times on {smi}")
+
+    canvas = Image.new("RGBA", (657, 369), color + (255,))
+    placements = []  # scales 0.5, 0.75, 1 and 1.25 (an upscale)
+    for i, oid in enumerate(sorted(bundle.objects)):
+        w, h = (v * (i + 2) // 4 + 1 for v in bundle.objects[oid].size)
+        placements.append({"object_id": oid, "box": [40 * i, 15 * i, 40 * i + w, 15 * i + h]})
+    got, counts = _counted(lambda: np.asarray(compositor.composite(
+        canvas, bundle.objects, placements, device="cuda")))
+    want = _pil_compose(bundle, canvas.copy(), placements)
+    if counts["fused_compose"] != 1 or not np.array_equal(got, np.asarray(want)):
+        raise AssertionError(f"[ui] compat composite: K1 launched {counts['fused_compose']} "
+                             f"times, == PIL {np.array_equal(got, np.asarray(want))}")
+    print(f"[ui] compat.compositor.composite on the card (squarespace, {len(placements)} "
+          f"placements, downscales and an upscale, 657x369): == PIL (max abs err 0), K1 "
+          f"launched once")
+    return launches + counts["fused_compose"]
+
+
 _CONTRACT = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -1834,6 +2185,8 @@ def main_smoke() -> int:
     variants_k2, variants_launches = phase_variants(smi)
     serving_launches = phase_serving(smi)
     agentic_launches = phase_agentic(smi)
+    mesh_launches = phase_mesh(smi)
+    ui_launches = phase_ui(smi)
     cli, serve = kernel["cli_9x16_b1"], kernel["serve_1080p_b64"]
     packed = {**hybrid, **{k: v for k, v in ops_rows.items() if k != "row2"}}
     print(f"[kernels] {LIBRARY_NOTE}")
@@ -1841,12 +2194,14 @@ def main_smoke() -> int:
         _entry("fused_compose", KERNEL_SOURCE,
                f"{KERNEL_REPLACES} (kernel-table row 12), {KERNEL_REPLACES_ROW1}",
                launches["fused_compose"] + sum(r["launches"] for r in row1.values())
-               + serving_launches["fused_compose"] + agentic_launches, cli,
+               + serving_launches["fused_compose"] + agentic_launches
+               + mesh_launches["fused_compose"] + ui_launches, cli,
                max_abs_err=max(r["max_abs_err"] for r in (cli, serve, *row1.values())),
                geometries={"row12_cli_9x16_b1": cli, "row12_1080p_b64": serve,
                            **{f"row1_{k}": v for k, v in row1.items()}}),
         _entry("fused_v3", V3_SOURCE, V3_REPLACES,
-               batched_launches["fused_v3"] + variants_launches + serving_launches["fused_v3"],
+               batched_launches["fused_v3"] + variants_launches + serving_launches["fused_v3"]
+               + mesh_launches["fused_v3"],
                batched["fused_v3"],
                max_abs_err=max(batched["fused_v3"]["max_abs_err"], variants_k2["max_abs_err"]),
                geometries={"sweep_1080p_b64": batched["fused_v3"],

@@ -129,6 +129,42 @@ def composite_canvas_tables_indexed(
     return work
 
 
+def composite_canvas_tables_indexed_many(
+    canvas_u8: torch.Tensor,
+    objs_all: torch.Tensor,
+    perm,
+    boxes,
+    kh_i32: torch.Tensor,
+    kv_i32: torch.Tensor,
+    same_size,
+) -> torch.Tensor:
+    """A batch of independent placement sets (leading dim B) composed onto
+    one shared canvas and object tensor in ONE K1 call over B canvases
+    (port of ops/compose.py:255; the serving coalescer's merge).
+
+    canvas_u8 [H, W, 4]; objs_all [No, Hm, Wm, 4]; perm [B, N]; boxes
+    [B, N, 4]; kh_i32 [B, N, Wout_max, Wm]; kv_i32 [B, N, Hout_max, Hm];
+    same_size [B, N]. A row whose tables are all zero is padding (JAX's
+    exact no-op) and is not launched. Returns a new uint8 [B, H, W, 4] on
+    the canvas's device: K1 on a CUDA canvas, its plain version on a CPU
+    canvas."""
+    from .compose_kernels import FLAG_IDENTITY, FLAG_LIVE, fused_compose
+
+    dev = canvas_u8.device
+    kh = torch.as_tensor(kh_i32).to(dev, torch.int32).contiguous()
+    kv = torch.as_tensor(kv_i32).to(dev, torch.int32).contiguous()
+    perm = torch.as_tensor(perm).to(dev, torch.long)
+    live = kh.flatten(2).ne(0).any(-1)
+    same = torch.as_tensor(same_size).to(dev, torch.bool)
+    flags = (live.to(torch.uint8) * FLAG_LIVE) | (same.to(torch.uint8) * FLAG_IDENTITY)
+    out = canvas_u8.to(torch.uint8)[None].repeat(perm.shape[0], 1, 1, 1)
+    fused_compose(
+        out, objs_all.to(dev, torch.uint8)[perm].contiguous(), kh, kv,
+        torch.as_tensor(boxes).to(dev, torch.int32).contiguous(), flags.contiguous(),
+    )
+    return out
+
+
 def _grow_canvas(canvas_u8: torch.Tensor, out_max_hw: Tuple[int, int]) -> torch.Tensor:
     """A uint8 copy of the canvas, zero-padded at the bottom/right so every
     blend window fits (only when the object envelope exceeds the canvas);

@@ -10,8 +10,15 @@ raises; on the CPU it runs their plain versions. ``kernel="xla"`` is JAX's
 XLA step, which runs no kernel: the plain compose
 (``ops.compose.composite_batch``) on the given device. The device is
 explicit: each factory takes a ``device`` (default ``cuda``), and asking
-for CUDA without a card raises. The multi-GPU forms (``mesh=``) wait for
-the multi-GPU item.
+for CUDA without a card raises.
+
+The multi-GPU forms take a :class:`~.mesh.Mesh` (one process per GPU) and
+run on its device: :func:`sharded_compose_step` (the plain compose on
+each rank's canvases, as JAX's XLA step), :func:`make_sharded_solid_render`
+(K2 per rank), :func:`sharded_compose_many` (the serving merge, K1 per
+rank) and ``throughput_sweep(mesh=)``. Each takes the global batch, keeps
+its rank's shard, and reduces the run-level luminance over the ``data``
+ranks with one all-reduce (JAX's ``pmean``).
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..ops.compose import composite_batch
+from ..ops.compose import composite_batch, composite_canvas_tables_indexed_many
 from ..ops.compose_kernels import (
     REC709,
     composite_batch_fused_v3,
@@ -33,6 +40,8 @@ from ..ops.compose_kernels import (
     render_solid_fused_v3_program,
     render_solid_fused_v3_reuse_program,
 )
+
+from .mesh import Mesh, Sharding, shard_batched
 
 KERNELS = ("xla", "pallas")
 STATS = ("luma", "fence")
@@ -158,6 +167,93 @@ def make_solid_render_step(
     return step
 
 
+def _batch_mean(mesh: Mesh, luma: torch.Tensor, total: int) -> torch.Tensor:
+    """The mean of the per-canvas ``luma`` over the mesh's ``data`` ranks,
+    [1] float32: one all-reduce of the local sum."""
+    s = luma.sum(dtype=torch.float32).reshape(1)
+    return mesh.all_reduce_sum(s, "data") / total
+
+
+def sharded_compose_step(
+    mesh: Mesh,
+    out_max_hw: Tuple[int, int],
+    spatial: bool = False,
+):
+    """Multi-GPU batched compose (JAX sweep.py:388): ``step(canvases, objs,
+    obj_hw, boxes) -> (this rank's composed canvases, mean luminance [1])``.
+
+    The arguments are the global batch (host arrays or tensors); each rank
+    composes its ``data`` shard with the plain compose on ``mesh.device``
+    (JAX's XLA step runs no kernel), and with ``spatial`` returns its band
+    of canvas rows (the height must divide over ``spatial``; the rank
+    composes its canvases whole and keeps the band). The luminance is the
+    batch mean over the whole mesh (an all-reduce over ``data``)."""
+    batch = shard_batched(mesh)
+    band = Sharding(mesh, (None, "spatial"))  # rows of this rank's canvases
+    dev = mesh.device
+
+    def step(canvases, objs, obj_hw, boxes):
+        total = canvases.shape[0]
+        local = [_on(batch.local(x), dev) for x in (canvases, objs, obj_hw, boxes)]
+        out = composite_batch(*local, out_max_hw)
+        luma = _batch_mean(mesh, _luma_u8(out), total)
+        return (band.local(out).contiguous() if spatial else out), luma
+
+    return step
+
+
+def make_sharded_solid_render(
+    mesh: Mesh,
+    canvas_hw: Tuple[int, int],
+    out_max_hw: Tuple[int, int],
+    bg_rgba: Tuple[int, int, int, int] = (128, 128, 128, 255),
+    static_obj_hw: Optional[Tuple[Tuple[int, int], ...]] = None,
+):
+    """Multi-GPU one-program solid render (JAX sweep.py:423): the gen-3
+    render (K2 on a CUDA device, its plain version on the CPU) runs on each
+    rank's ``data`` shard, and the run-level mean luminance is one
+    all-reduce over ``data`` (JAX's ``pmean``).
+
+    ``step(objs_p [1 or B, N, 4, ph, pw], obj_hw [B, N, 2], boxes
+    [B, N, 4]) -> (this rank's padded packed planes [B / data, hp, wp],
+    global luma [1])``. The arguments are global; objects with a leading 1
+    are shared by every canvas, as the single-GPU render takes them."""
+    from ..ops.compose_kernels import pack_rgba_scalar
+
+    H, W = canvas_hw
+    bg = pack_rgba_scalar(bg_rgba)
+    batch = shard_batched(mesh)
+    dev = mesh.device
+
+    def step(objs_p, obj_hw, boxes):
+        total = boxes.shape[0]
+        objs_p = _on(objs_p if objs_p.shape[0] == 1 else batch.local(objs_p), dev)
+        out = render_solid_fused_v3_program(
+            objs_p, _on(batch.local(obj_hw), dev), _on(batch.local(boxes), dev),
+            (H, W), bg, out_max_hw, static_obj_hw=static_obj_hw,
+        )
+        return out, _batch_mean(mesh, packed_luma(out[:, :H, :W]), total)
+
+    return step
+
+
+def sharded_compose_many(mesh: Mesh, canvas_u8, objs_all, perm, boxes, kh_i32, kv_i32,
+                         same_size) -> torch.Tensor:
+    """The serving merge with its batch split over the ``data`` ranks: each
+    rank runs ``ops.compose.composite_canvas_tables_indexed_many`` (K1 over
+    its canvases on a CUDA device) on its shard of the placement sets.
+
+    ``canvas_u8`` and ``objs_all`` are shared; ``perm``, ``boxes``,
+    ``kh_i32``, ``kv_i32`` and ``same_size`` carry the global merge batch
+    (leading dim B). Returns this rank's uint8 [B / data, H, W, 4]."""
+    batch = shard_batched(mesh)
+    dev = mesh.device
+    return composite_canvas_tables_indexed_many(
+        _on(canvas_u8, dev), _on(objs_all, dev),
+        *(_on(batch.local(x), dev) for x in (perm, boxes, kh_i32, kv_i32, same_size)),
+    )
+
+
 def random_downscale_boxes(
     rng: np.random.Generator,
     obj_hw: np.ndarray,
@@ -214,14 +310,17 @@ def throughput_sweep(
     end in a fence each; the timed region is ``reps`` reps and one fence
     on the last stat. Returns the timing and throughput per ratio and
     overall.
+
+    With ``mesh`` (JAX's mesh branch, sweep.py:563) every rank runs
+    :func:`sharded_compose_step` on its ``data`` shard of the B canvases
+    (``spatial``: and its band of rows) on ``mesh.device``; ``kernel``,
+    ``superbatch`` and ``device`` are not used, and the timing is this
+    rank's.
     """
     from ..layout.canvas import compute_canvas_size
 
-    if mesh is not None:
-        raise NotImplementedError("the multi-GPU sweep (mesh=) is not ported yet")
-    del spatial  # only meaningful with a mesh
     _check_kernel(kernel)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     rng = np.random.default_rng(seed)
     n_max = max(len(b.meta) for b in bundles)
     pad_h = max(m.height for b in bundles for m in b.meta.values())
@@ -249,7 +348,21 @@ def throughput_sweep(
             boxes[i] = random_downscale_boxes(rng, arr.obj_hw, (H, W))
         hw_d = torch.from_numpy(hw).to(dev)
 
-        if kernel == "pallas":
+        if mesh is not None:
+            # JAX's mesh sweep: the sharded plain compose over uploaded
+            # solid canvases, whatever ``kernel`` says
+            canvases = np.zeros((B, H, W, 4), np.uint8)
+            canvases[..., :3] = 128
+            canvases[..., 3] = 255
+            mesh_step = sharded_compose_step(mesh, (pad_h, pad_w), spatial=spatial)
+
+            def rep():
+                return mesh_step(canvases, objs, hw, boxes)[1]
+
+            warm = max(1, warmup)
+            k_steps = 0
+            per_rep = B
+        elif kernel == "pallas":
             # one bundle: every canvas has the same objects, shared as [1, N]
             objs_in = objs[:1] if len(arrays) == 1 else objs
             objs_p = planarize_objects(torch.from_numpy(objs_in).to(dev))
@@ -310,7 +423,10 @@ def throughput_sweep(
 __all__ = [
     "batched_compose_step",
     "make_batched_compose",
+    "make_sharded_solid_render",
     "make_solid_render_step",
     "random_downscale_boxes",
+    "sharded_compose_many",
+    "sharded_compose_step",
     "throughput_sweep",
 ]

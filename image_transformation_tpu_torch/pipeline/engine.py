@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..core.bundle import BundleArrays
-from ..ops.compose_kernels import fused_compose, fused_tables_prep
+from ..ops.compose_kernels import FLAG_IDENTITY, fused_compose, fused_tables_prep
 
 # LRU bounds of the per-call input cache (entries, device bytes)
 _CACHE_MAX_ENTRIES = 64
@@ -128,6 +128,17 @@ class ComposeEngine:
                 (self.out_max_h, self.out_max_w),
             )
         return perm, kh, kv, boxes_i32, flags
+
+    def indexed_args_np(self, live: List[Dict], n_pad: int):
+        """One placement set as the arguments of
+        ``ops.compose.composite_canvas_tables_indexed_many`` (JAX engine.py
+        ``_indexed_args_np``): host (perm i32 [n_pad], boxes i32, kh, kv,
+        same bool), padded with JAX's exact no-op rows (all-zero tables,
+        box (0, 0, 1, 1))."""
+        perm, kh, kv, boxes, flags = self._host_tables(live, n_pad)
+        boxes = boxes[0]
+        boxes[len(live):] = (0, 0, 1, 1)
+        return perm.astype(np.int32), boxes, kh[0], kv[0], (flags[0] & FLAG_IDENTITY) > 0
 
     def _kernel_args(self, live: List[Dict], signature):
         """(objects [1, N, ph, pw, 4], kh, kv, boxes, flags) on the device,

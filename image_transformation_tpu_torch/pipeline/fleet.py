@@ -7,8 +7,10 @@ of bundles ingests through the native PNG loader, and each bundle's layout
 solves and composes for EVERY requested ratio in one fused device pass
 (solve -> background -> compose -> stats, pipeline/fused.py): K2 on a CUDA
 device with ``kernel="pallas"`` (the default), its plain version on the
-CPU. A K2 failure raises; nothing falls back to the plain compose. The
-multi-GPU form (``mesh=`` / ``--mesh``) waits for ROADMAP A15.
+CPU. A K2 failure raises; nothing falls back to the plain compose. With a
+mesh (``mesh=``, ``--mesh`` under ``torchrun``) the ratio variants shard
+over the ranks (``make_sharded_fused_render``, one process per GPU) and
+rank 0 writes the artifacts.
 
 Layout source per bundle, in priority order:
 1. an explicit layout JSON (``--layout-json`` applied to all bundles, or a
@@ -21,6 +23,8 @@ Usage:
     python -m image_transformation_tpu_torch.pipeline.fleet \
         --bundles data/squarespace,data/audio_book \
         --ratios 9:16,1:1,16:9,4:1 --output-root fleet_out [--device cpu]
+    torchrun --nproc-per-node N -m image_transformation_tpu_torch.pipeline.fleet \
+        --mesh --dist-backend nccl --bundles ... --ratios ...
 """
 
 from __future__ import annotations
@@ -35,8 +39,6 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-
-_MESH_ERROR = "the multi-GPU fleet (mesh) is not ported yet: ROADMAP A15"
 
 
 def _fallback_layout(items: List[dict]) -> Dict:
@@ -203,18 +205,25 @@ def run_fleet(
     ``torch.cuda.synchronize`` on a CUDA device. ``kernel="pallas"`` runs
     K2 on a CUDA device and raises if it fails; "xla" runs the plain
     compose. ``device`` defaults to "cuda" and raises without a card.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``; every rank calls this) the run
+    is on ``mesh.device``: the variants pad to a multiple of the mesh's
+    ranks (``pad_ragged_variants``, the padding masked out of the luma),
+    each rank renders its shard with ``make_sharded_fused_render``, and
+    every rank gathers the canvases and boxes; rank 0 writes the same tree,
+    PNGs and boxes as a single-device run.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ERROR)
     reps = max(1, int(reps))
-    dev = resolve_device(str(device))
+    dev = mesh.device if mesh is not None else resolve_device(str(device))
 
     from ..core.bundle import load_bundle
     from ..core.native_io import save_png
     from ..layout.canvas import compute_canvas_size
     from ..layout.solve import FlexProgram
     from ..ops.background import masked_median_rgb
-    from .fused import make_fused_render, map_bundle_to_program
+    from ..parallel.mesh import shard_batched
+    from .fused import (make_fused_render, make_sharded_fused_render, map_bundle_to_program,
+                        pad_ragged_variants)
 
     def fence() -> None:
         if dev.type == "cuda":
@@ -222,8 +231,10 @@ def run_fleet(
 
     output_root = Path(output_root) if output_root else Path.cwd() / "fleet_out"
     ratios = list(ratios)
+    n_dev = mesh.size() if mesh is not None else 1
+    save = save and (mesh is None or mesh.rank == 0)
 
-    summary: Dict = {"bundles": {}, "ratios": ratios, "devices": 1, "device": str(dev),
+    summary: Dict = {"bundles": {}, "ratios": ratios, "devices": n_dev, "device": str(dev),
                      "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                                      else "cpu")}
     total_canvases = 0
@@ -251,15 +262,25 @@ def run_fleet(
         objs, obj_wh, known = map_bundle_to_program(prog, bundle, arrays)
 
         median = masked_median_rgb(torch.from_numpy(np.array(bundle.background)).to(dev))
+        canvas_wh = np.asarray(sizes_wh, np.int32)
+        if mesh is not None:
+            # the variant batch tiles the mesh: pad, and mask the padding
+            # out of the run-level luminance
+            canvas_wh, valid = pad_ragged_variants(canvas_wh, n_dev)
         # upload ONCE: the object tensor is the largest host array in the loop
         args = (
-            torch.tensor(sizes_wh, dtype=torch.int32, device=dev),
+            torch.from_numpy(canvas_wh).to(dev),
             median.to(torch.uint8),
             torch.from_numpy(objs).to(dev),
             torch.from_numpy(obj_wh).to(dev),
             torch.from_numpy(known).to(dev),
         )
-        step = make_fused_render(prog, (h_max, w_max), obj_pad, kernel=kernel)
+        if mesh is not None:
+            args = args + (torch.from_numpy(valid).to(dev),)
+            step = make_sharded_fused_render(mesh, prog, (h_max, w_max), obj_pad, masked=True,
+                                             kernel=kernel)
+        else:
+            step = make_fused_render(prog, (h_max, w_max), obj_pad, kernel=kernel)
         result = step(*args)  # warm-up (and the first K2 build)
         fence()
         t0 = time.perf_counter()
@@ -268,6 +289,9 @@ def run_fleet(
         fence()
         device_s = (time.perf_counter() - t0) / reps
         out, boxes = result[0], result[1]
+        if mesh is not None:
+            batch = shard_batched(mesh)
+            out, boxes = batch.gather(out), batch.gather(boxes)
 
         out_np = out.cpu().numpy()
         boxes_np = boxes.cpu().numpy()
@@ -410,8 +434,10 @@ def main(argv=None) -> None:
                         help="WxH pixel budget (e.g. 3840x2160); default: each "
                              "bundle's original size")
     parser.add_argument("--mesh", action="store_true",
-                        help="Shard ratio variants over all visible devices "
-                             "(not ported yet: raises)")
+                        help="Shard ratio variants over the ranks of the process group "
+                             "(torchrun: one process per GPU; a world of one without it)")
+    parser.add_argument("--dist-backend", choices=["nccl", "gloo"], default="nccl",
+                        help="--mesh collective backend (nccl on cards, gloo on the CPU)")
     parser.add_argument("--reps", type=int, default=1)
     parser.add_argument(
         "--kernel", choices=["xla", "pallas"], default="pallas",
@@ -483,25 +509,35 @@ def main(argv=None) -> None:
         }))
         return
 
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(_MESH_ERROR)
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=args.device, backend=args.dist_backend)
 
     budget = None
     if args.pixel_budget:
         w, h = args.pixel_budget.lower().split("x")
         budget = (int(w), int(h))
 
-    summary = run_fleet(
-        bundle_dirs,
-        ratios,
-        output_root=Path(args.output_root),
-        layout_json=Path(args.layout_json) if args.layout_json else None,
-        save=not args.no_save,
-        pixel_budget_size=budget,
-        reps=args.reps,
-        kernel=args.kernel,
-        device=device,
-    )
+    try:
+        summary = run_fleet(
+            bundle_dirs,
+            ratios,
+            output_root=Path(args.output_root),
+            layout_json=Path(args.layout_json) if args.layout_json else None,
+            mesh=mesh,
+            save=not args.no_save,
+            pixel_budget_size=budget,
+            reps=args.reps,
+            kernel=args.kernel,
+            device=device,
+        )
+    finally:
+        if mesh is not None:
+            mesh.close()
+    if mesh is not None and mesh.rank != 0:
+        return
     print(json.dumps({
         "bundles": len(summary["bundles"]),
         "ratios": summary["ratios"],

@@ -19,6 +19,10 @@ device is that of the step's tensors; the entry points take ``device``
 (default "cuda", which raises without a card). Nothing falls back to
 another kernel or device.
 
+:func:`make_sharded_fused_render` runs the same step on each rank of a
+``parallel.mesh.Mesh`` (one process per GPU) over its shard of the
+variants, with the run's luminance reduced by one all-reduce.
+
 The resample is LANCZOS, the one filter of the port's gen-3 tables.
 """
 
@@ -196,12 +200,81 @@ def make_fused_render(
     return pallas_step
 
 
-def make_sharded_fused_render(*args, **kwargs):
-    """The multi-GPU fused step (JAX's mesh-sharded variant batch) waits for
-    the multi-GPU item (ROADMAP A15)."""
-    raise NotImplementedError(
-        "the sharded fused render (mesh) is not ported yet: ROADMAP A15"
-    )
+def make_sharded_fused_render(
+    mesh,
+    prog: FlexProgram,
+    canvas_max_hw: Tuple[int, int],
+    obj_pad_hw: Tuple[int, int],
+    spatial: bool = False,
+    batch_axes: Tuple[str, ...] = ("data",),
+    masked: bool = False,
+    background: str = "solid",
+    gradient_horizontal: bool = True,
+    kernel: str = "xla",
+):
+    """Multi-GPU fused step (JAX fused.py:260): the variants shard over the
+    mesh's ``batch_axes``, the object tensors are whole on every rank, and
+    the global mean luminance is one all-reduce.
+
+    The per-variant core is :func:`make_fused_render`'s step (its
+    ``kernel``: "xla", JAX's sharded step, or "pallas", K2 on a CUDA
+    device), so single-GPU and sharded semantics agree by construction.
+
+    ``step(canvas_wh [V, 2], bg, objs, obj_wh, obj_known[, valid [V]])``
+    takes the GLOBAL arguments on every rank (host arrays or tensors) and
+    returns (this rank's canvases [V / batch, h_max (/ spatial), w_max, 4]
+    uint8, its boxes [V / batch, N, 4], the global luma [1] float32), all
+    on ``mesh.device``. ``batch_axes`` is ``("data",)``, or
+    ``("slice", "data")`` on a slice mesh (the reduction then crosses both
+    dims). With ``spatial`` a rank keeps its band of ``h_max /
+    mesh.size("spatial")`` canvas rows (it renders its variants whole);
+    V must divide over the batch ranks and h_max over ``spatial``, as
+    JAX's shardings require. ``masked=True`` adds ``valid``: ragged
+    variant counts pad up to the mesh (:func:`pad_ragged_variants`) and the
+    luma is ``sum(luma * w) / max(1, sum(w))``, both sums reduced in one
+    all-reduce. ``shard_batched(mesh, batch_axes=..., spatial_dim=1 with
+    spatial).gather`` (``parallel.mesh``) assembles the global canvases.
+    """
+    from ..parallel.mesh import Sharding, shard_batched
+
+    axes = tuple(batch_axes) if len(batch_axes) > 1 else batch_axes[0]
+    batch = shard_batched(mesh, batch_axes=axes)
+    band = Sharding(mesh, (None, "spatial"))  # rows of this rank's variants
+    if spatial and canvas_max_hw[0] % mesh.size("spatial"):
+        raise ValueError(f"dimension 1 of size {canvas_max_hw[0]} is not divisible by the "
+                         f"mesh's ('spatial',) extent {mesh.size('spatial')}")
+    core = make_fused_render(prog, canvas_max_hw, obj_pad_hw, kernel=kernel,
+                             background=background, gradient_horizontal=gradient_horizontal)
+    dev = mesh.device
+
+    def on(x):
+        return x.to(dev) if torch.is_tensor(x) else torch.from_numpy(np.array(x)).to(dev)
+
+    def run(canvas_wh, bg, objs, obj_wh, obj_known, valid=None):
+        total = canvas_wh.shape[0]
+        out, boxes, _scales, luma = core(on(batch.local(canvas_wh)), on(bg), on(objs),
+                                         on(obj_wh), on(obj_known))
+        if spatial:
+            # the rank rendered its variants whole: keep its band of rows
+            out = band.local(out).contiguous()
+        if valid is None:
+            s = luma.sum().reshape(1)
+            return out, boxes, mesh.all_reduce_sum(s, axes) / total
+        w = on(batch.local(valid)).to(torch.float32)
+        s = torch.stack([torch.sum(luma * w), torch.sum(w)])
+        s = mesh.all_reduce_sum(s, axes)
+        return out, boxes, (s[0] / s[1].clamp(min=1.0)).reshape(1)
+
+    if masked:
+        def masked_step(canvas_wh, bg, objs, obj_wh, obj_known, valid):
+            return run(canvas_wh, bg, objs, obj_wh, obj_known, valid)
+
+        return masked_step
+
+    def step(canvas_wh, bg, objs, obj_wh, obj_known):
+        return run(canvas_wh, bg, objs, obj_wh, obj_known)
+
+    return step
 
 
 def pad_ragged_variants(canvas_wh: np.ndarray, multiple: int):

@@ -7,7 +7,8 @@ the boxes must be equal, the PNGs within 1 (of 255; the JAX runner's
 default is its XLA compose, the port's K2's plain version: JAX's own
 cross-program envelope, tests/test_fused_render.py:106). The same holds
 for the CLI's --variants. The port raises where JAX would fall back or
-shard: a K2 failure, --mesh, and CUDA without a card.
+shard: a K2 failure, --mesh over nccl on the CPU, and CUDA without a card.
+(The mesh paths themselves: tests/test_torch_mesh.py.)
 """
 
 import json
@@ -100,10 +101,9 @@ def test_a_k2_failure_raises_and_nothing_falls_back(tmp_path, monkeypatch):
 
 
 def test_mesh_and_missing_card_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A15"):
-        fleet.run_fleet(BUNDLES[:1], ["1:1"], output_root=tmp_path, mesh=object(),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
+    # --mesh names its backend (nccl by default), which is never switched
+    # to gloo on the caller's behalf: nccl on the CPU raises
+    with pytest.raises(ValueError, match="nccl"):
         fleet.main(["--bundles", "data/squarespace", "--mesh", "--device", "cpu",
                     "--output-root", str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

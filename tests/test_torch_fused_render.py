@@ -15,6 +15,8 @@ and "pallas", which on CPU tensors runs K2's plain version). Tolerances:
   to the host oracle layout/flex.solve_flex.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -183,8 +185,11 @@ def test_host_helpers_equal_jax():
 def test_options_and_missing_card_raise(monkeypatch):
     bundle = load_bundle("data/squarespace")
     prog = FlexProgram.from_dsl(_layout_for(bundle))
-    with pytest.raises(NotImplementedError, match="A15"):
-        fused.make_sharded_fused_render(None, prog, (10, 10), (4, 4))
+    # canvas rows that do not divide over the mesh's spatial ranks (the
+    # sharded step itself: tests/test_torch_mesh.py)
+    three = types.SimpleNamespace(size=lambda axes=None: 3)
+    with pytest.raises(ValueError, match="divisible"):
+        fused.make_sharded_fused_render(three, prog, (10, 10), (4, 4), spatial=True)
     with pytest.raises(ValueError, match="kernel"):
         make_fused_render(prog, (10, 10), (4, 4), kernel="mosaic")
     with pytest.raises(ValueError, match="background"):

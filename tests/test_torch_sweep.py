@@ -156,9 +156,18 @@ def test_throughput_sweep_pallas_smoke(superbatch):
 
 
 def test_sweep_asks_for_its_device_and_has_no_mesh(monkeypatch):
+    """The sweep runs on the device it is given, or on a mesh's (here a
+    world of one over gloo; the sharded sweep against JAX's:
+    tests/test_torch_mesh.py), and asking for CUDA without a card raises."""
+    from image_transformation_tpu_torch.parallel.mesh import make_mesh
+
     bundles = [load_bundle("data/audio_book")]
-    with pytest.raises(NotImplementedError):
-        throughput_sweep(bundles, ["1:1"], 2, mesh=object(), device="cpu")
+    mesh = make_mesh(device="cpu", backend="gloo")
+    try:
+        r = throughput_sweep(bundles, ["1:1"], 2, (64, 48), mesh=mesh, warmup=0, reps=1)
+    finally:
+        mesh.close()
+    assert r["total_canvases"] == 2 and r["ratios"]["1:1"]["batch"] == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         throughput_sweep(bundles, ["1:1"], 2)
