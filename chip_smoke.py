@@ -110,14 +110,30 @@ exits non-zero:
 12. ui: the port's headless main app on the card (squarespace 9:16, fake
    client, 2 refinements) with K1's count read around it (> 0), its drafts
    == PIL; compat.compositor.composite on the card == PIL, K1 launched once;
-13. one JSON line of kernel results (each with its bound: the larger of the
-   bytes it must move over 3.35 TB/s and its operations over 67 TFLOP/s,
-   H100 SXM peaks from NVIDIA's data sheet), the nvidia-smi line, and last
-   {"ok": true, "device": {...}}.
+13. roofline (ops/roofline.py, ops/roofline_compute.py), under the port's
+   PhaseWatchdog with a deadline per sub-phase (a stall prints one line
+   naming it and exits 3): the bench workload, squarespace objects shared
+   (planar), 1080x1920, B=256, boxes from seed 0, make_solid_render_step
+   with stat "fence"; the step's bytes by term and operations by stage
+   (counted once, outside the timed reps), device memory allocated
+   around the step's construction and two steps (fresh, then reuse: K3 +
+   K2) beside expected_live_hbm_bytes, the reuse and the fresh step's
+   ms (median CUDA-event time of 20 reps after a warm-up, in turns),
+   summarize and summarize_compute of each, and every kernel-table row's
+   share of its bound (bound ms / measured ms) from the phases above. It
+   fails when a share whose bytes do not fit in L2 reads above 1.05 (a
+   count above the work) or when the live-memory prediction is under the
+   measured peak by more than 10%;
+14. one JSON line of kernel results (each with its bound from
+   ops/roofline.py: the larger of the bytes it must move over the card's
+   HBM rate and its resample multiply-adds on the int8 tensor cores, three
+   limbs each, H100 peaks from NVIDIA's datasheet), the nvidia-smi line,
+   and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -142,14 +158,6 @@ BLEND_REPLACES = ("image_transformation_tpu/ops/compose_pallas.py:1210, :1457, :
 PLANAR_REPLACES = "image_transformation_tpu/ops/compose_pallas.py:1029 (kernel-table row 2)"
 STAGE_REPLACES = "benchmarks/bisect_resize.py:271 (kernel-table row 15)"
 KERNEL_REPLACES_ROW1 = "image_transformation_tpu/ops/compose_pallas.py:829 (kernel-table row 1)"
-#: H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, and float32
-#: operations/s outside the tensor cores, the rate of the scalar int32 and
-#: f32 arithmetic these kernels do
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-#: integer operations of one Pillow alpha-over (csrc/pillow.cuh: 7 multiplies,
-#: 1 divide, ~22 adds and shifts)
-ALPHA_OVER_OPS = 30
 LIBRARY_NOTE = ("library_ms null: no single PyTorch call computes Pillow's fixed-point "
                 "resample or alpha-over, or fills a set of per-placement windows")
 #: (name, clamped, pipelined): the four forms K4 replaces, by kernel-table row
@@ -307,6 +315,7 @@ def phase_kernel(smi: str):
         fused_compose,
         fused_compose_reference,
     )
+    from image_transformation_tpu_torch.ops.roofline import k1_bound
 
     device = torch.device("cuda", 0)
     w9, h9 = compute_canvas_size((970, 250), "9:16", verbose=False)
@@ -457,195 +466,23 @@ def _in_turns(kernel, plain, k_reps, p_reps):
 
 def _bound_text(r: dict) -> str:
     return (f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_gbytes']:.4f} GB, "
-            f"{r['bound_gops']:.3f} Gop)")
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: the larger of ``nbytes`` over the
-    HBM rate and ``ops`` over the scalar rate, and which of the two it is."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
-    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_gbytes=nbytes / 1e9, bound_gops=ops / 1e9, library_ms=None)
-
-
-def placement_traffic(plane_shape, rects):
-    """(covered source pixels, distinct plane pixels written) of placements
-    ``rects`` = [(b, x, y, mh, mw), ...], cut at the plane [B, hp, wp]."""
-    import torch
-
-    B, hp, wp = plane_shape
-    mask = torch.zeros((B, hp, wp), dtype=torch.bool)
-    covered = 0
-    for b, x, y, mh, mw in rects:
-        x0, y0, x1, y1 = max(x, 0), max(y, 0), min(x + mw, wp), min(y + mh, hp)
-        if x1 > x0 and y1 > y0:
-            covered += (y1 - y0) * (x1 - x0)
-            mask[b, y0:y1, x0:x1] = True
-    return covered, int(mask.sum())
+            f"{r['bound_gmacs']:.3f} G multiply-adds; scalar diagnostic {r['scalar_ms']:.4f} ms"
+            f"{', L2-resident' if r['l2_resident'] else ''})")
 
 
 def _scan_text(plane_shape, src, meta, bnd) -> str:
     """The bytes K4's bounds launch reads beside the launch's bound (not a
     measurement: counted from the inputs)."""
+    import torch
+
+    from image_transformation_tpu_torch.ops.roofline import hbm_peak_gbps, k4_scan_bytes
+
     scan = k4_scan_bytes((plane_shape[0], *plane_shape[-2:]), src, meta)
+    peak = hbm_peak_gbps(torch.cuda.get_device_name())
     return (f"K4 bounds launch reads {scan / 1e9:.4f} GB of sources "
-            f"({1e3 * scan / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s) beside the call's bound "
+            f"({scan / peak / 1e6:.4f} ms at {peak:.0f} GB/s) beside the call's bound "
             f"{bnd['bound_gbytes']:.4f} GB ({bnd['bound_ms']:.4f} ms): with JAX's signature the "
             f"live boxes are known only after that scan")
-
-
-def blend_bound(plane_shape, src, meta, blends=True) -> dict:
-    """Bound of one K4 launch on ``meta`` as the launch takes it (any
-    columns zeroed), counting what these inputs need: each pixel of a valid
-    placement's live box (the bounding box of its source's nonzero pixels;
-    the producers zero a source outside its resized box) read once (4 B)
-    where it lies on the plane [B, hp, wp]; each plane pixel under a source
-    pixel of alpha > 0 read and written once (8 B; Pillow's alpha-over leaves
-    the plane as it is under alpha 0); the meta; and, where the launch
-    blends, an alpha-over for each source pixel of alpha > 0 on the plane.
-    ``src`` is packed i32 [B, N, mh, mw] or planar u8 [B, N, 4, mh, mw]."""
-    import torch
-
-    B, hp, wp = plane_shape
-    if src.dim() == 5:
-        alpha, live = src[:, :, 3] > 0, (src != 0).any(dim=2)
-    else:
-        alpha, live = ((src >> 24) & 255) != 0, src != 0
-    rows, cols = live.any(-1), live.any(-2)
-    r = torch.arange(rows.shape[-1], device=src.device)
-    c = torch.arange(cols.shape[-1], device=src.device)
-    # first and one-past-last live row and column (an empty source: first > last)
-    extents = torch.stack([torch.where(rows, r, rows.shape[-1]).amin(-1),
-                           torch.where(rows, r + 1, 0).amax(-1),
-                           torch.where(cols, c, cols.shape[-1]).amin(-1),
-                           torch.where(cols, c + 1, 0).amax(-1)], -1).tolist()
-    written = torch.zeros((B, hp, wp), dtype=torch.bool, device=src.device)
-    blended = torch.zeros((), dtype=torch.int64, device=src.device)
-    read = 0
-    for b, rows_b in enumerate(meta.tolist()):
-        for k, (ws_x, ws_y, dx, dy, _, valid) in enumerate(rows_b):
-            r0, r1, c0, c1 = extents[b][k]
-            x, y = ws_x + dx, ws_y + dy
-            x0, y0 = max(x + c0, 0), max(y + r0, 0)
-            x1, y1 = min(x + c1, wp), min(y + r1, hp)
-            if valid <= 0 or x1 <= x0 or y1 <= y0:
-                continue
-            read += (x1 - x0) * (y1 - y0)
-            a = alpha[b, k, y0 - y:y1 - y, x0 - x:x1 - x]
-            written[b, y0:y1, x0:x1] |= a
-            blended += a.sum()
-    return bound(4 * read + 8 * int(written.sum()) + 4 * meta.numel(),
-                 ALPHA_OVER_OPS * int(blended) if blends else 0)
-
-
-def resample_ops(kh, kv, in_h, out_w, resampled) -> int:
-    """Operations of the exact two-pass resample of the placements where
-    ``resampled`` [B, N] is set: each nonzero table entry multiply-adds (2
-    operations) once per channel over the object's in_h source rows (H
-    pass) or the box's out_w output columns (V pass). Table construction is
-    not counted, so this is a lower bound."""
-    nh = (kh != 0).sum(dim=(-1, -2))
-    nv = (kv != 0).sum(dim=(-1, -2))
-    return int((8 * (nh * in_h + nv * out_w) * resampled).sum())
-
-
-def alpha_pixels(plane) -> int:
-    """Pixels of alpha > 0 in a packed i32 [B, h, w] or u8 [B, h, w, 4]
-    plane. Composed onto a transparent plane, they are the pixels some
-    placement changes: Pillow's alpha-over leaves a pixel as it is under
-    alpha 0."""
-    if plane.dim() == 3:
-        return int((((plane >> 24) & 255) != 0).sum())
-    return int((plane[..., 3] > 0).sum())
-
-
-def k1_bound(canvas, objects, kh, kv, boxes, flags) -> dict:
-    """Bound of one K1 launch, counting what these inputs need: the objects,
-    boxes and flags read; of the tables, the rows of each resampled
-    placement's box (its size cut at the envelope); each canvas pixel
-    under a resampled pixel of alpha > 0 read and written (the plain
-    version composed onto a transparent canvas marks them); the resample's
-    operations and an alpha-over per pixel of each live box on the canvas."""
-    import torch
-
-    from image_transformation_tpu_torch.ops.compose_kernels import fused_compose_reference
-
-    bx = boxes.to(torch.int64)
-    out_w = (bx[..., 2] - bx[..., 0]).clamp(min=1, max=kh.shape[2])
-    out_h = (bx[..., 3] - bx[..., 1]).clamp(min=1, max=kv.shape[2])
-    live = (flags & 1) > 0
-    resampled = (live & ((flags & 2) == 0)).to(torch.int64)
-    live_h, sizes = live.tolist(), torch.stack([out_h, out_w], -1).tolist()
-    rects = [(b, x, y, *sizes[b][k]) for b, row in enumerate(bx[..., :2].tolist())
-             for k, (x, y) in enumerate(row) if live_h[b][k]]
-    covered, _ = placement_traffic(canvas.shape[:3], rects)
-    written = alpha_pixels(fused_compose_reference(torch.zeros_like(canvas), objects,
-                                                   kh, kv, boxes, flags))
-    tables = 4 * int(((out_w * kh.shape[3] + out_h * kv.shape[3]) * resampled).sum())
-    nbytes = tables + sum(t.numel() * t.element_size() for t in (objects, boxes, flags))
-    in_h = (kv != 0).any(dim=-2).sum(dim=-1)  # source rows that carry weight
-    ops = resample_ops(kh, kv, in_h, out_w, resampled)
-    return bound(nbytes + 8 * written, ops + ALPHA_OVER_OPS * covered)
-
-
-def k2_bound(plane, objs_p, meta, out_max_hw) -> dict:
-    """Bound of one K2 launch: its objects and meta read, each plane pixel
-    under a resized pixel of alpha > 0 read and written (the plain version
-    composed onto a transparent plane marks them), the resample's operations
-    on the tables its sizes give (built here with the plain f32 table code)
-    and an alpha-over per pixel of each placement on the plane."""
-    import torch
-
-    from image_transformation_tpu_torch.ops.compose_kernels import fused_v3_reference
-    from image_transformation_tpu_torch.ops.resize import build_coeffs_traced
-
-    m = meta.to(torch.int64)
-    ph, pw = objs_p.shape[3], objs_p.shape[4]
-    mh, mw = out_max_hw
-    in_h, in_w = m[..., 6].clamp(0, ph), m[..., 7].clamp(0, pw)
-    out_h, out_w = m[..., 8].clamp(0, mh), m[..., 9].clamp(0, mw)
-    resampled = ((m[..., 5] > 0) & (m[..., 4] == 0)).to(torch.int64)
-    ops = resample_ops(build_coeffs_traced(in_w, out_w, pw, mw),
-                       build_coeffs_traced(in_h, out_h, ph, mh), in_h, out_w, resampled)
-    sizes = torch.stack([out_h, out_w], -1).tolist()
-    rects = [(b, ws_x + dx, ws_y + dy, *sizes[b][k])
-             for b, rows in enumerate(m.tolist())
-             for k, (ws_x, ws_y, dx, dy, _, valid, *_) in enumerate(rows) if valid > 0]
-    covered, _ = placement_traffic(plane.shape, rects)
-    written = alpha_pixels(fused_v3_reference(torch.zeros_like(plane), objs_p, meta,
-                                              out_max_hw))
-    nbytes = objs_p.numel() + 4 * meta.numel() + 8 * written
-    return bound(nbytes, ops + ALPHA_OVER_OPS * covered)
-
-
-def k3_bound(plane, origins, extents) -> dict:
-    """Bound of one K3 launch: each pixel of the union of a canvas's windows
-    written once (4 B), the origins read; with the windows' summed pixels
-    and that union (``summed_px``, ``union_px``)."""
-    rects = [(b, x, y, *extents[k]) for b, row in enumerate(origins.tolist())
-             for k, (x, y) in enumerate(row)]
-    summed, union = placement_traffic(plane.shape, rects)
-    return dict(bound(4 * union + 4 * origins.numel(), 0), summed_px=summed, union_px=union)
-
-
-def k4_scan_bytes(plane_shape, src, meta) -> int:
-    """Source bytes K4's bounds launch reads: every pixel (4 B, packed or
-    four planes) of each valid placement's envelope that lands on the plane
-    [B, hp, wp] (rounded up to its 16-byte loads)."""
-    B, hp, wp = plane_shape
-    mh, mw = src.shape[-2:]
-    q = 16 if src.dim() == 5 else 4  # pixels per 16-byte load (of each plane)
-    q = q if mw % q == 0 else 1
-    total = 0
-    for rows in meta.tolist():
-        for ws_x, ws_y, dx, dy, _, valid in rows:
-            x, y = ws_x + dx, ws_y + dy
-            r = min(mh, hp - y) - max(0, -y)
-            c0, c1 = max(0, -x), min(mw, wp - x)
-            if valid > 0 and r > 0 and c1 > c0:
-                total += 4 * r * q * (-(-c1 // q) - c0 // q)
-    return total
 
 
 def phase_batched(smi: str):
@@ -654,6 +491,7 @@ def phase_batched(smi: str):
 
     from image_transformation_tpu_torch.core.bundle import load_bundle
     from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.ops.roofline import k2_bound, k3_bound
     from image_transformation_tpu_torch.parallel import throughput_sweep
     from image_transformation_tpu_torch.parallel.sweep import random_downscale_boxes
 
@@ -822,6 +660,7 @@ def phase_hybrid(smi: str):
 
     from image_transformation_tpu_torch.ops import compose_kernels as ck
     from image_transformation_tpu_torch.ops.compose import composite_batch
+    from image_transformation_tpu_torch.ops.roofline import blend_bound
 
     bundle, boxes_np, canvases, objs, hw, boxes, env = hybrid_inputs(torch.device("cuda", 0))
     B, H, W = canvases.shape[:3]
@@ -936,6 +775,7 @@ def _ops_k4_rows(smi: str, ref) -> dict:
     import torch
 
     from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.ops.roofline import blend_bound
 
     _, _, canvases, objs, hw, boxes, env = hybrid_inputs(torch.device("cuda", 0))
     rows = {}
@@ -1006,6 +846,7 @@ def _ops_row1(smi: str) -> dict:
     from image_transformation_tpu_torch.layout.canvas import compute_canvas_size
     from image_transformation_tpu_torch.ops import compose_kernels as ck
     from image_transformation_tpu_torch.ops.compose import composite_exact
+    from image_transformation_tpu_torch.ops.roofline import k1_bound
     from image_transformation_tpu_torch.parallel.sweep import random_downscale_boxes
 
     device = torch.device("cuda", 0)
@@ -1068,6 +909,7 @@ def _ops_row15(smi: str) -> dict:
     import torch
 
     from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.ops.roofline import blend_bound
 
     _, _, canvases, objs, hw, boxes, env = hybrid_inputs(torch.device("cuda", 0))
     plane, src, meta = ck._hybrid_producer_clamped(canvases, objs, hw, boxes, env, "lanczos")
@@ -1264,6 +1106,7 @@ def variants_wide(smi: str, device, budget=FLEET_BUDGET, v=WIDE_V):
 
     from image_transformation_tpu_torch.core.bundle import load_bundle
     from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.ops.roofline import k2_bound
 
     bundle = load_bundle(ROOT / "data" / "squarespace")
     ratios = [VARIANT_RATIOS[i % len(VARIANT_RATIOS)] for i in range(v)]
@@ -2161,6 +2004,165 @@ def phase_ui(smi: str) -> int:
     return launches + counts["fused_compose"]
 
 
+#: [roofline]: the bench workload's batch, the reps of each timed step, the
+#: sub-phases' deadlines (s; each far above its time on the card, so only a
+#: stall trips one), the largest share a count may read (above it the count
+#: exceeds the work) and how far the live-memory model may fall short
+ROOFLINE_B = 256
+ROOFLINE_REPS = 20
+ROOFLINE_DEADLINES = {"inputs": 60, "model": 300, "memory": 120, "timed": 180, "report": 60}
+SHARE_LIMIT = 1.05
+LIVE_SHORTFALL = 0.10
+
+
+def row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15):
+    """(kernel-table row, kernel, geometry, result) of every row's timed
+    geometry in the phases above, each result with ``ms`` and its bound."""
+    rows = [("12", "K1", f"row12_{g}", kernel[g]) for g in kernel]
+    rows += [("1", "K1", f"row1_{g}", row1[g]) for g in row1]
+    rows += [("13", "K2", "sweep_1080p_b64", batched["fused_v3"]),
+             ("13", "K2", f"variants_1080p_v{WIDE_V}", variants_k2),
+             ("14", "K3", "sweep_1080p_b64", batched["restore_windows"])]
+    rows += [(r[3:], "K4", "1080p_b64", v) for r, v in {**hybrid, **ops_rows}.items()]
+    rows += [("15", "K4 stage", v, r) for v, r in row15["variants"].items()]
+    return rows
+
+
+def _step_report(label, model, work, ms, raw, name, smi):
+    """Print one timed step's roofline and return its share of the bound."""
+    from image_transformation_tpu_torch.ops import roofline
+    from image_transformation_tpu_torch.ops import roofline_compute as rc
+
+    bps = 1e3 / ms
+    roof = roofline.summarize(model, bps, name)
+    comp = rc.summarize_compute(work, bps, name, hbm_bytes_per_batch=model["total_bytes"])
+    bnd = roofline.bound(model["total_bytes"], work["int_macs"], work["scalar_ops"], name)
+    share = bnd["bound_ms"] / ms
+    print(f"[roofline] {label} step: {ms:.4f} ms ({', '.join(f'{t:.4f}' for t in raw)}; median "
+          f"CUDA-event ms of {ROOFLINE_REPS} reps after a warm-up, in turns), "
+          f"{ROOFLINE_B * bps:.1f} canvases/s; bytes by term {json.dumps(roof['model_bytes_per_batch'])}; "
+          f"{_bound_text(bnd)}; share of the bound {share:.5f} on {smi}")
+    print(f"[roofline] {label} summarize: {json.dumps(roof)}")
+    print(f"[roofline] {label} summarize_compute: {json.dumps(comp)}")
+    return share, bnd["l2_resident"]
+
+
+def phase_roofline(smi: str, rows) -> dict:
+    """The bench workload's step against its work model, every row's share
+    of its bound, and the live-memory model against the allocator's peak,
+    under the watchdog."""
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.core.watchdog import PhaseWatchdog
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.ops import roofline
+    from image_transformation_tpu_torch.ops import roofline_compute as rc
+    from image_transformation_tpu_torch.parallel.sweep import (
+        make_solid_render_step,
+        random_downscale_boxes,
+    )
+
+    def on_stall(payload):
+        print(f"[roofline] stalled in sub-phase {payload['stalled_phase']!r} after "
+              f"{payload['elapsed_s']} s (deadline {payload['deadline_s']} s): "
+              f"{json.dumps(payload, default=str)}", flush=True)
+        sys.stderr.flush()
+
+    H, W = BATCH_HW
+    B = ROOFLINE_B
+    name = torch.cuda.get_device_name(0)
+    device = torch.device("cuda", 0)
+    wd = PhaseWatchdog(on_stall, context={"batch": B, "canvas_hw": [H, W], "device_name": name})
+    try:
+        wd.phase("inputs", ROOFLINE_DEADLINES["inputs"])
+        arrays = load_bundle(ROOT / "data" / "squarespace").to_arrays()
+        N, pad = arrays.obj_hw.shape[0], tuple(arrays.objects.shape[1:3])
+        static = tuple(tuple(int(v) for v in row) for row in arrays.obj_hw)
+        rng = np.random.default_rng(0)
+        boxes = np.stack([random_downscale_boxes(rng, arrays.obj_hw, (H, W)) for _ in range(B)])
+        hw = np.broadcast_to(arrays.obj_hw, (B, N, 2)).copy()
+
+        wd.phase("model", ROOFLINE_DEADLINES["model"])
+        t0 = time.perf_counter()
+        models = {reuse: roofline.solid_render_bytes_per_batch(
+            B, N, (H, W), pad, static_obj_hw=static, shared_objs=True, reuse=reuse,
+            stat="fence", boxes=boxes, objects=arrays) for reuse in (True, False)}
+        work = rc.solid_render_compute_per_batch(arrays.obj_hw, boxes, (H, W), pad,
+                                                 static_obj_hw=static)
+        live = roofline.expected_live_hbm_bytes(B, N, (H, W), pad, shared_objs=True)
+        wd.update_context(expected_live_hbm_bytes=live)
+        print(f"[roofline] squarespace {H}x{W} B={B} N={N} shared planar objects, stat fence: "
+              f"work counted in {time.perf_counter() - t0:.2f} s (host tables, once per "
+              f"geometry); operations by stage {json.dumps(work['stages'])} (multiply-adds of "
+              f"the two passes, alpha-over operations of the blend); card {name!r}, L2 "
+              f"{torch.cuda.get_device_properties(0).L2_cache_size} bytes, table "
+              f"{roofline.card_peaks(name)}")
+
+        wd.phase("memory", ROOFLINE_DEADLINES["memory"])
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        objs_p = ck.planarize_objects(torch.from_numpy(arrays.objects).to(device)[None])
+        hw_d, boxes_d = (torch.from_numpy(x).to(device) for x in (hw, boxes))
+        step = make_solid_render_step((H, W), pad, static_obj_hw=static, stat="fence",
+                                      device="cuda")
+        ck.reset_launch_counts()
+        for _ in range(2):  # fresh, then reuse
+            step(None, objs_p, hw_d, boxes_d)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        launches = {k: ck.LAUNCHES[k] for k in ("fused_v3", "restore_windows")}
+        if launches != {"fused_v3": 2, "restore_windows": 1}:
+            raise AssertionError(f"[roofline] a fresh and a reuse step launched {launches}")
+        print(f"[roofline] live memory: predicted {live['total_bytes']:.0f} bytes "
+              f"({json.dumps(live)}), measured peak allocated {peak} bytes around the step's "
+              f"construction and two steps (fresh, then reuse; launches {launches}); predicted / "
+              f"measured {live['total_bytes'] / peak:.4f} on {smi}")
+        if live["total_bytes"] < (1 - LIVE_SHORTFALL) * peak:
+            raise AssertionError(f"[roofline] live-memory model {live['total_bytes']:.0f} is under "
+                                 f"the measured peak {peak} by more than {LIVE_SHORTFALL:.0%}")
+
+        wd.phase("timed", ROOFLINE_DEADLINES["timed"])
+        fresh = make_solid_render_step((H, W), pad, static_obj_hw=static, stat="fence",
+                                       reuse=False, device="cuda")
+        steps = {"reuse": lambda: step(None, objs_p, hw_d, boxes_d),
+                 "fresh": lambda: fresh(None, objs_p, hw_d, boxes_d)}
+        times = {k: [] for k in steps}
+        for k in ("reuse", "fresh", "fresh", "reuse"):
+            times[k].append(cuda_ms(steps[k], ROOFLINE_REPS))
+        step.release()
+        del step, fresh, steps
+
+        wd.phase("report", ROOFLINE_DEADLINES["report"])
+        out = {"live_predicted": live["total_bytes"], "live_measured": peak}
+        for label, reuse in (("reuse", True), ("fresh", False)):
+            share, l2 = _step_report(label, models[reuse], work, min(times[label]),
+                                     times[label], name, smi)
+            out[label] = dict(ms=min(times[label]), share=share)
+            if share > SHARE_LIMIT and not l2:
+                raise AssertionError(f"[roofline] the {label} step reads {share:.3f} of its "
+                                     f"bound: the count exceeds the work")
+        over = []
+        for row, kern, geometry, r in rows:
+            share = r["bound_ms"] / r["ms"]
+            print(f"[roofline] row {row} ({kern}) {geometry}: bound {r['bound_ms']:.4f} ms by "
+                  f"{r['bound_by']} / {r['ms']:.4f} ms measured = share {share:.4f}"
+                  f"{' (L2-resident: not an HBM share)' if r['l2_resident'] else ''}")
+            if share > SHARE_LIMIT and not r["l2_resident"]:
+                over.append(f"row {row} {geometry} {share:.3f}")
+        if over:
+            raise AssertionError(f"[roofline] shares above {SHARE_LIMIT}: {over}")
+        print(f"[roofline] {len(rows)} row geometries, none above {SHARE_LIMIT} outside L2; "
+              f"on {smi}")
+    finally:
+        wd.done()
+    return out
+
+
 _CONTRACT = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -2187,6 +2189,7 @@ def main_smoke() -> int:
     agentic_launches = phase_agentic(smi)
     mesh_launches = phase_mesh(smi)
     ui_launches = phase_ui(smi)
+    phase_roofline(smi, row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15))
     cli, serve = kernel["cli_9x16_b1"], kernel["serve_1080p_b64"]
     packed = {**hybrid, **{k: v for k, v in ops_rows.items() if k != "row2"}}
     print(f"[kernels] {LIBRARY_NOTE}")

@@ -11,10 +11,10 @@ plus an identity box and an edge box, and its bounds). Prints:
 - K4's device time per call from torch.profiler, mean of ``REPS`` calls,
   split into its two launches (bounds, blend), in the unclamped and the
   clamped geometry and on the planar entry (row 2), with the bytes these
-  inputs need (chip_smoke.blend_bound: 4 per pixel of each live box, 8
-  per plane pixel under a source pixel of alpha > 0), the rate they give
-  and the bound at 3.35 TB/s, and the source bytes the bounds launch reads
-  (chip_smoke.k4_scan_bytes) with the rate it reaches;
+  inputs need (ops/roofline.py blend_bound: 4 per pixel of each live box,
+  8 per plane pixel under a source pixel of alpha > 0), the rate they give
+  and the bound at the card's HBM rate, and the source bytes the bounds
+  launch reads (ops/roofline.py k4_scan_bytes) with the rate it reaches;
 - the K4 wrapper's host steps on row 6's inputs, its whole host time and
   its CUDA-event time (tools/profile_k1.py ``wrapper_costs``);
 - the clamped hybrid compose over ``REPS`` calls ending in one
@@ -43,6 +43,7 @@ import torch
 
 import chip_smoke
 from image_transformation_tpu_torch.ops import compose_kernels as ck
+from image_transformation_tpu_torch.ops.roofline import blend_bound, k4_scan_bytes
 from tools import profile_k1
 from tools.profile_k2 import _kernel_times
 
@@ -75,8 +76,8 @@ def profile_k4(smi: str, device) -> None:
         if min(parts.values()) == 0:
             raise RuntimeError(f"the profiler saw no device time of a K4 launch: {parts}")
         shape = (plane.shape[0], *plane.shape[-2:])
-        bnd = chip_smoke.blend_bound(shape, src, meta)
-        gbytes, scan = bnd["bound_gbytes"], chip_smoke.k4_scan_bytes(shape, src, meta) / 1e9
+        bnd = blend_bound(shape, src, meta)
+        gbytes, scan = bnd["bound_gbytes"], k4_scan_bytes(shape, src, meta) / 1e9
         split = ", ".join(f"{label} {t:.1f} us ({100 * t / us:.0f}%)" for label, t in parts.items())
         print(f"[profile] K4 {name} plane {shape[1]}x{shape[2]} B={shape[0]} N={src.shape[1]} "
               f"source {src.shape[-2]}x{src.shape[-1]}: {us:.1f} us per call ({split}; mean of "
@@ -109,7 +110,7 @@ def anatomy(smi: str, device) -> None:
     med = {v: statistics.median(t) for v, t in dev_us.items()}
     spread = {v: max(t) - min(t) for v, t in dev_us.items()}
     for variant in ck.STAGE_VARIANTS:
-        bnd = chip_smoke.blend_bound(plane.shape, src, metas[variant],
+        bnd = blend_bound(plane.shape, src, metas[variant],
                                      blends=variant in ck.STAGE_BLENDS)
         if variant not in ck.STAGE_BLENDS and min(dev_us[variant]) < 500 * bnd["bound_ms"]:
             raise RuntimeError(f"{variant} ran {min(dev_us[variant]):.1f} us, under half its "
