@@ -90,7 +90,8 @@ exits non-zero:
    PIL (the max printed); then /v1/render's HTTP p50/p95 over 200
    sequential requests, the median X-Render-Timings split, requests/s and
    p50/p95 for 16 concurrent clients, render_batch's p50 at 8 ratios, and
-   measure_device_ms for one request and a merge of 8;
+   measure_device_ms for one request and a merge of 8; then both services
+   are closed (ComposeService.close) and no drain worker is left alive;
 10. agentic: run_workflow on the card with the fake client, squarespace
    9:16, 2 iterations, K1's count read around it (> 0), every draft and
    layout == the CPU run's, the drafts == PIL;
@@ -110,7 +111,17 @@ exits non-zero:
 12. ui: the port's headless main app on the card (squarespace 9:16, fake
    client, 2 refinements) with K1's count read around it (> 0), its drafts
    == PIL; compat.compositor.composite on the card == PIL, K1 launched once;
-13. roofline (ops/roofline.py, ops/roofline_compute.py), under the port's
+   compat.macro_placement_test.main (the reference module's CLI, fake
+   client, 1 refinement) with --device cuda (K1's count read around it,
+   > 0) and --device cpu, drafts byte-equal to each other and == PIL;
+13. install: the package copied (no bytecode) into a directory with no
+   pyproject.toml above it, then in a subprocess whose cwd and PYTHONPATH
+   hold only that copy and whose HOME is another temporary directory, one
+   ops.compose.composite_exact on the card (K1, count read around it): the
+   kernels build from the copy's csrc/ into that HOME's
+   .cache/image_transformation_tpu_torch/kernels/, and the result == K1's
+   plain version == PIL;
+14. roofline (ops/roofline.py, ops/roofline_compute.py), under the port's
    PhaseWatchdog with a deadline per sub-phase (a stall prints one line
    naming it and exits 3): the bench workload, squarespace objects shared
    (planar), 1080x1920, B=256, boxes from seed 0, make_solid_render_step
@@ -124,7 +135,7 @@ exits non-zero:
    fails when a share whose bytes do not fit in L2 reads above 1.05 (a
    count above the work) or when the live-memory prediction is under the
    measured peak by more than 10%;
-14. one JSON line of kernel results (each with its bound from
+15. one JSON line of kernel results (each with its bound from
    ops/roofline.py: the larger of the bytes it must move over the card's
    HBM rate and its resample multiply-adds on the int8 tensor cores, three
    limbs each, H100 peaks from NVIDIA's datasheet), the nvidia-smi line,
@@ -135,6 +146,8 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1601,12 +1614,19 @@ def phase_serving(smi: str) -> dict:
             daemon.shutdown()
             daemon.server_close()
             thread.join(timeout=60)
-            for t in threading.enumerate():
-                if t.name == "coalescer-drain":
-                    t.join(120)
         stats = card.stats()
         print(f"[serving] /v1/stats dispatch_floor {stats['dispatch_floor']}, coalescing "
               f"{card.coalescing_stats()}")
+        t0 = time.perf_counter()
+        card.close()
+        t1 = time.perf_counter()
+        cpu.close()
+        t2 = time.perf_counter()
+        alive = [t.name for t in threading.enumerate() if t.name == "coalescer-drain"]
+        if alive:
+            raise AssertionError(f"[serving] drain workers alive after close(): {alive}")
+        print(f"[serving] both services closed (card {t1 - t0:.3f} s, cpu {t2 - t1:.3f} s): "
+              "no drain worker alive")
     return {"fused_compose": k1, "fused_v3": k2}
 
 
@@ -2001,7 +2021,139 @@ def phase_ui(smi: str) -> int:
     print(f"[ui] compat.compositor.composite on the card (squarespace, {len(placements)} "
           f"placements, downscales and an upscale, 657x369): == PIL (max abs err 0), K1 "
           f"launched once")
-    return launches + counts["fused_compose"]
+    return launches + counts["fused_compose"] + ui_reference_cli(smi, bundle, color)
+
+
+def ui_reference_cli(smi: str, bundle, color) -> int:
+    """compat.macro_placement_test.main (fake client, 1 refinement) with
+    --device cuda, K1's count read around it, and --device cpu: drafts
+    byte-equal to each other and == PIL."""
+    import numpy as np
+    from PIL import Image
+
+    from image_transformation_tpu_torch.compat import macro_placement_test
+    from image_transformation_tpu_torch.vlm.client import register_fake_client
+
+    args = ["--bundle", str(ROOT / "data" / "squarespace"), "--ratio", "9:16", "--api", "fake",
+            "--refine-iters", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mpt_") as tmp:
+        try:
+            card, counts = _counted(lambda: macro_placement_test.main(
+                args + ["--device", "cuda", "--output-root", str(Path(tmp) / "cuda")]))
+            cpu = macro_placement_test.main(
+                args + ["--device", "cpu", "--output-root", str(Path(tmp) / "cpu")])
+        finally:
+            register_fake_client(None)
+        launches = counts["fused_compose"]
+        drafts = sorted(p.relative_to(card) for p in card.glob(
+            "iteration_*/final_product/draft_macro_iter_*.png"))
+        if launches <= 0 or not drafts:
+            raise AssertionError(f"[ui] reference CLI: K1 launched {launches} times, "
+                                 f"{len(drafts)} drafts")
+        for d in drafts:
+            if (card / d).read_bytes() != (cpu / d).read_bytes():
+                raise AssertionError(f"[ui] reference CLI draft {d}: cuda != cpu")
+            lay = json.loads((card / d).parents[1].joinpath(
+                "layout_json", f"layout_macro_iter_{d.name[-6:-4]}.json").read_text())
+            got = np.asarray(Image.open(card / d))
+            pil = _pil_compose(bundle, Image.new("RGBA", (got.shape[1], got.shape[0]),
+                                                 color + (255,)), lay["placements"])
+            if not np.array_equal(got, np.asarray(pil)):
+                raise AssertionError(f"[ui] reference CLI draft {d} != PIL")
+    print(f"[ui] compat.macro_placement_test.main, squarespace 9:16, fake client, 1 "
+          f"refinement: {len(drafts)} draft(s), --device cuda byte-equal to --device cpu, "
+          f"== PIL (max abs err 0); K1 launched {launches} times on {smi}")
+    return launches
+
+
+#: [install]'s child: one composite_exact on the card from the copied
+#: package, its plain version on the CPU, the launch count and the library
+INSTALL_CHILD = """
+import json, sys
+import numpy as np, torch
+from PIL import Image
+from image_transformation_tpu_torch.core.bundle import load_bundle
+from image_transformation_tpu_torch.ops import _build, compose_kernels as ck
+from image_transformation_tpu_torch.ops.compose import composite_exact
+
+bundle = load_bundle(sys.argv[1])
+canvas = np.array(Image.new("RGBA", (657, 369), (200, 120, 40, 255)))
+oids = sorted(bundle.objects)
+pad_h = max(bundle.objects[o].size[1] for o in oids)
+pad_w = max(bundle.objects[o].size[0] for o in oids)
+objs = np.zeros((len(oids), pad_h, pad_w, 4), np.uint8)
+hw = np.zeros((len(oids), 2), np.int32)
+boxes = np.zeros((len(oids), 4), np.int32)
+for i, oid in enumerate(oids):  # scales 0.5, 0.75, 1 and 1.25 (an upscale)
+    a = np.asarray(bundle.objects[oid].convert("RGBA"))
+    objs[i, :a.shape[0], :a.shape[1]] = a
+    hw[i] = a.shape[:2]
+    w, h = (v * (i + 2) // 4 + 1 for v in bundle.objects[oid].size)
+    boxes[i] = [40 * i, 15 * i, 40 * i + w, 15 * i + h]
+args = lambda dev: (torch.from_numpy(canvas.copy()).to(dev), torch.from_numpy(objs).to(dev))
+ck.reset_launch_counts()
+card = composite_exact(*args("cuda"), hw, boxes).cpu().numpy()
+torch.cuda.synchronize()
+launches = ck.LAUNCHES["fused_compose"]
+plain = composite_exact(*args("cpu"), hw, boxes).numpy()
+np.save(sys.argv[2] + "/card.npy", card)
+np.save(sys.argv[2] + "/plain.npy", plain)
+np.save(sys.argv[2] + "/boxes.npy", boxes)
+print(json.dumps({"launches": launches, "library": str(_build.library_path()),
+                  "build_dir": str(_build.build_dir()),
+                  "nvcc_s": _build.last_build_seconds,
+                  "module": ck.__file__}))
+"""
+
+
+def phase_install(smi: str) -> int:
+    """The package outside a checkout: a copy with no pyproject.toml above
+    it, run in a subprocess with its own HOME; the kernels build into that
+    HOME's cache, and K1's result == its plain version == PIL."""
+    import numpy as np
+    from PIL import Image
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_install_") as tmp:
+        tree, home, out = Path(tmp) / "site", Path(tmp) / "home", Path(tmp) / "out"
+        shutil.copytree(PACKAGE, tree / PACKAGE.name,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        home.mkdir()
+        out.mkdir()
+        env = dict(os.environ, HOME=str(home), PYTHONPATH=str(tree))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", INSTALL_CHILD,
+                            str(ROOT / "data" / "squarespace"), str(out)],
+                           cwd=tree, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"[install] the copied package failed ({r.returncode}):\n"
+                                 f"{r.stdout}\n{r.stderr}")
+        info = json.loads(r.stdout.strip().splitlines()[-1])
+        cache = home / ".cache" / "image_transformation_tpu_torch" / "kernels"
+        library = Path(info["library"])
+        if Path(info["build_dir"]) != cache or library.parent != cache or not library.is_file():
+            raise AssertionError(f"[install] the library is not under the HOME cache: {info}")
+        if not Path(info["module"]).is_relative_to(tree):
+            raise AssertionError(f"[install] the child imported {info['module']}, not the copy")
+        card, plain = np.load(out / "card.npy"), np.load(out / "plain.npy")
+        bundle = load_bundle(ROOT / "data" / "squarespace")
+        placements = [{"object_id": oid, "box": [int(v) for v in box]}
+                      for oid, box in zip(sorted(bundle.objects), np.load(out / "boxes.npy"))]
+        pil = np.asarray(_pil_compose(bundle, Image.new("RGBA", (657, 369), (200, 120, 40, 255)),
+                                      placements))
+        if info["launches"] <= 0 or not np.array_equal(card, plain) \
+                or not np.array_equal(card, pil):
+            raise AssertionError(f"[install] K1 launched {info['launches']} times, == plain "
+                                 f"{np.array_equal(card, plain)}, == PIL "
+                                 f"{np.array_equal(card, pil)}")
+    print(f"[install] the package copied outside a checkout (HOME and PYTHONPATH of its own): "
+          f"nvcc {info['nvcc_s']:.2f}s into $HOME/.cache/image_transformation_tpu_torch/"
+          f"kernels/{library.name}, composite_exact on the card == K1's plain version == PIL "
+          f"(max abs err 0, 657x369, {len(placements)} placements), K1 launched "
+          f"{info['launches']} times; {seconds:.1f}s in all on {smi}")
+    return info["launches"]
 
 
 #: [roofline]: the bench workload's batch, the reps of each timed step, the
@@ -2189,6 +2341,7 @@ def main_smoke() -> int:
     agentic_launches = phase_agentic(smi)
     mesh_launches = phase_mesh(smi)
     ui_launches = phase_ui(smi)
+    install_launches = phase_install(smi)
     phase_roofline(smi, row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15))
     cli, serve = kernel["cli_9x16_b1"], kernel["serve_1080p_b64"]
     packed = {**hybrid, **{k: v for k, v in ops_rows.items() if k != "row2"}}
@@ -2198,7 +2351,7 @@ def main_smoke() -> int:
                f"{KERNEL_REPLACES} (kernel-table row 12), {KERNEL_REPLACES_ROW1}",
                launches["fused_compose"] + sum(r["launches"] for r in row1.values())
                + serving_launches["fused_compose"] + agentic_launches
-               + mesh_launches["fused_compose"] + ui_launches, cli,
+               + mesh_launches["fused_compose"] + ui_launches + install_launches, cli,
                max_abs_err=max(r["max_abs_err"] for r in (cli, serve, *row1.values())),
                geometries={"row12_cli_9x16_b1": cli, "row12_1080p_b64": serve,
                            **{f"row1_{k}": v for k, v in row1.items()}}),

@@ -13,7 +13,6 @@ import json
 import sys
 import tempfile
 import threading
-import time
 import urllib.request
 from pathlib import Path
 
@@ -63,18 +62,9 @@ def main(argv=None) -> None:
                       f"png_b64={len(line['png_b64'])} chars")
     finally:
         server.shutdown()
+        server.server_close()
         thread.join(timeout=5)
-        _wait_for_workers()
-
-
-def _wait_for_workers(timeout_s: float = 300.0) -> None:
-    """Let the daemon's threads finish: its request handlers, and the drain
-    worker, which calibrates the device at idle once the queue empties. A
-    thread still inside torch when the interpreter exits aborts the
-    process."""
-    deadline = time.monotonic() + timeout_s
-    while threading.active_count() > 1 and time.monotonic() < deadline:
-        time.sleep(0.05)
+        service.close()  # joins the drain worker (it calibrates at idle)
 
 
 if __name__ == "__main__":

@@ -7,12 +7,14 @@ started together, then one link:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -Xcompiler -fPIC -c -o <tmp>/<name>.o csrc/<name>.cu    (each source)
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
-         -o build/kernels/kernels_<hash>.so <tmp>/*.o
+         -o <build dir>/kernels_<hash>.so <tmp>/*.o
 
-The file is named by a hash of the sources, headers and flags, under ``build/kernels/``
-at the root of the checkout, so an unchanged tree builds once and an edited
-source builds anew. The library is loaded with ``ctypes``; each wrapper sets
-its entry's argument types (pointers and the stream as ``c_void_p``).
+The file is named by a hash of the sources, headers and flags, so an
+unchanged tree builds once and an edited source builds anew. It goes under
+:func:`build_dir`: ``build/kernels/`` at the root of a source checkout, and
+``~/.cache/image_transformation_tpu_torch/kernels/`` for an installed
+package. The library is loaded with ``ctypes``; each wrapper sets its
+entry's argument types (pointers and the stream as ``c_void_p``).
 
 Nothing is built when this module is imported: the CPU tests import every
 module and have no ``nvcc``.
@@ -33,7 +35,6 @@ from pathlib import Path
 from typing import List, Optional
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -49,6 +50,32 @@ last_build_report = ""
 
 def sources() -> List[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    """Where the library is built: ``build/kernels`` at the root of a source
+    checkout (the directory above the package holds a ``pyproject.toml``),
+    else the user's cache, beside the serving manifest."""
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "kernels"
+    return Path.home() / ".cache" / "image_transformation_tpu_torch" / "kernels"
+
+
+def check_includes() -> None:
+    """Raise, naming the file, when a source or header includes a local
+    header that ``csrc/`` lacks (an install that left the headers out),
+    before nvcc reports it as a bare include error."""
+    missing = []
+    for src in sorted([*sources(), *CSRC_DIR.glob("*.cuh")]):
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M):
+            if not (CSRC_DIR / name).is_file():
+                missing.append(f"{src.name} includes {name}")
+    if missing:
+        raise RuntimeError(
+            f"CUDA headers missing under {CSRC_DIR}: {'; '.join(missing)} "
+            "(the package must ship csrc/*.cuh with csrc/*.cu)"
+        )
 
 
 def nvcc_path() -> str:
@@ -72,7 +99,7 @@ def library_path() -> Path:
     for src in sorted([*sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"kernels_{h.hexdigest()[:16]}.so"
 
 
 def build(verbose: bool = False) -> Path:
@@ -87,11 +114,13 @@ def build(verbose: bool = False) -> Path:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    check_includes()
+    out_dir = out.parent
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     verbose_flags = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+    with tempfile.TemporaryDirectory(dir=out_dir) as objdir:
         objs = [Path(objdir) / f"{src.stem}.o" for src in srcs]
         procs = [
             (subprocess.Popen(
@@ -108,7 +137,7 @@ def build(verbose: bool = False) -> Path:
                 failed.append(f"{src.name} ({proc.returncode}):\n{err}")
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *map(str, objs)]
         proc = subprocess.run(link, capture_output=True, text=True)

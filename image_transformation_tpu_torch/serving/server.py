@@ -78,14 +78,25 @@ Concurrency/caching design:
   shared across every ratio-set/background entry of a bundle;
 - built batch-step keys persist to a manifest so a restarted daemon can
   rebuild them before traffic.
+
+Shutdown: :meth:`ComposeService.close` stops the service's threads (the
+drain workers, the warm start, the render_fleet pools) and joins them; a
+render after it raises. ``serve()`` closes the service it built in the
+server's ``server_close()``, and an ``atexit`` handler closes every
+service still open when the interpreter exits, so no thread of the
+service is inside torch while the interpreter finalizes (a thread in
+torch then aborts the process).
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
+import sys
 import threading
 import time
+import weakref
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
@@ -120,10 +131,32 @@ _RENDER_WAIT_S = 300.0
 #: re-attached on the host): 25% fewer readback bytes
 _RGB_READBACK = True
 
+#: how long ComposeService.close() waits for the service's threads by
+#: default (at most one merge, one idle refresh step and one fused pass
+#: are in flight once the stop flag is set)
+_CLOSE_TIMEOUT_S = 60.0
+
 
 class RenderStuckError(RuntimeError):
     """A render waited past _RENDER_WAIT_S: the device pipeline is wedged
     or overloaded far beyond its deadline."""
+
+
+class ServiceClosedError(RuntimeError):
+    """A render asked of a service after :meth:`ComposeService.close`."""
+
+    def __init__(self):
+        super().__init__("the compose service is closed")
+
+
+def _join_all(threads, deadline: float) -> None:
+    """Join each thread by ``deadline`` (perf_counter seconds); raise,
+    naming every thread still alive after it."""
+    for t in threads:
+        t.join(max(0.0, deadline - time.perf_counter()))
+    alive = [t.name for t in threads if t.is_alive()]
+    if alive:
+        raise RuntimeError(f"compose service threads still running after close(): {alive}")
 
 
 def _measure_floor_samples(device: torch.device, n: int = 5) -> List[float]:
@@ -288,7 +321,8 @@ class _Coalescer:
 
     A short-lived worker thread drains the queue (spawned on demand, exits
     when idle), so no request thread is drafted into serving later
-    arrivals.
+    arrivals. :meth:`close` sets the stop flag: the worker settles what
+    is queued or in flight, runs no further idle refresh, and retires.
 
     Requests with identical placements are DEDUPED (singleflight): one
     compose leg, one row readback, and one shared PNG encode serve every
@@ -299,12 +333,16 @@ class _Coalescer:
     #: two); duplicates ride free on top of the cap
     MAX_MERGE = 8
 
-    def __init__(self, engine, floor: DispatchFloor):
+    def __init__(self, engine, floor: DispatchFloor, owner=None):
         self.engine = engine
         self.floor = floor
+        # the service this queue belongs to; a running worker holds it, so
+        # the service (and its atexit registration) outlives its callers
+        self._owner = weakref.ref(owner) if owner is not None else None
         self._lock = threading.Lock()
         self._pending: List[tuple] = []
         self._worker: Optional[threading.Thread] = None
+        self._closed = False
         self.requests = 0
         self.dispatches = 0
         self.deduped = 0
@@ -343,13 +381,16 @@ class _Coalescer:
         ticket = {"event": threading.Event(), "enqueued": time.perf_counter()}
         key = self._placements_key(placements)
         with self._lock:
+            if self._closed:
+                raise ServiceClosedError()
             self.requests += 1
             self._pending.append((placements, ticket, key))
             # worker retirement happens under this same lock (see _drain),
             # so either it is live and will see our item, or it is None
             if self._worker is None:
                 self._worker = threading.Thread(
-                    target=self._drain, daemon=True, name="coalescer-drain"
+                    target=self._drain, daemon=True, name="coalescer-drain",
+                    args=(self._owner and self._owner(),),
                 )
                 self._worker.start()
         if not ticket["event"].wait(timeout=_RENDER_WAIT_S):
@@ -367,6 +408,15 @@ class _Coalescer:
             raise ticket["error"]
         return ticket["result"], ticket.get("timings", {})
 
+    def close(self, timeout: float = _CLOSE_TIMEOUT_S) -> None:
+        """Set the stop flag and join the drain worker; raises, naming the
+        worker, if it is still alive after ``timeout`` seconds."""
+        with self._lock:
+            self._closed = True
+            worker = self._worker
+        if worker is not None:
+            _join_all([worker], time.perf_counter() + timeout)
+
     def backlog_age_s(self) -> float:
         """Age of the oldest unsettled work — queued requests AND merges
         dispatched but never completed — 0.0 when idle; the wedge signal
@@ -377,7 +427,8 @@ class _Coalescer:
             ages += [now - t0 for t0 in self._merge_t0s]
         return max(ages, default=0.0)
 
-    def _drain(self) -> None:
+    def _drain(self, owner=None) -> None:
+        # ``owner`` (the service) is only held: the thread drops it on exit
         # ONE merge pipelined against the previous completion: batch k+1
         # is dispatched (launches return at once on a card) BEFORE batch
         # k's readback, so the device computes k+1 while the host drains k.
@@ -394,8 +445,9 @@ class _Coalescer:
                     batch.append(item)
                 del self._pending[: len(batch)]
                 if not batch and inflight is None:
-                    floor_stale = self.floor.stale()
-                    calib_key = self._stale_calib_key()
+                    # closed: everything queued is settled, so no refresh
+                    floor_stale = not self._closed and self.floor.stale()
+                    calib_key = None if self._closed else self._stale_calib_key()
                     if not floor_stale and calib_key is None:
                         self._worker = None  # retire atomically with the check
                         return
@@ -467,6 +519,8 @@ class _Coalescer:
             # prior estimate exists
             est = old.get("device_ms")
             if est is None:
+                if self._stop_refresh():
+                    return
                 est = self.engine.measure_device_ms(
                     sets, reps=_CALIB_REPS_MIN, floor_ms=0.0
                 )
@@ -481,10 +535,8 @@ class _Coalescer:
                 samples.append(round(self.engine.measure_device_ms(
                     sets, reps=reps, floor_ms=floor
                 ), 3))
-                with self._lock:
-                    waiting = bool(self._pending)
-                if waiting:
-                    break  # yield to real traffic; the next idle refines
+                if self._stop_refresh():
+                    break  # yield to real traffic or close(); the next idle refines
             self._calib[key] = {
                 "device_ms": min(samples), "at": time.perf_counter(),
                 "reps": reps, "merge_programs": key[1],
@@ -497,6 +549,12 @@ class _Coalescer:
                 "device_ms": None, "at": time.perf_counter(), "failed": True,
             }
             raise
+
+    def _stop_refresh(self) -> bool:
+        """A request is queued or close() was called: an idle refresh
+        stops at its next step."""
+        with self._lock:
+            return bool(self._pending) or self._closed
 
     def calibration_info(self) -> Dict[str, dict]:
         """Public snapshot of the per-program device calibrations."""
@@ -669,9 +727,27 @@ class _Coalescer:
             self._settle_unsettled([t for _, ts in groups for t in ts], e)
 
 
+#: every service not yet closed; the atexit handler below closes them
+_LIVE_SERVICES: "weakref.WeakSet[ComposeService]" = weakref.WeakSet()
+
+
+@atexit.register
+def _close_live_services() -> None:
+    """Close every open service before the interpreter finalizes: a drain
+    worker still inside torch then would abort the process."""
+    for service in list(_LIVE_SERVICES):
+        try:
+            service.close()
+        except RuntimeError as e:
+            print(f"[serving] at exit: {e}", file=sys.stderr)
+
+
 class ComposeService:
     """Bundle/engine cache + render entry points (thread-safe), on one
-    device (``device``, default "cuda"; raises without a card)."""
+    device (``device``, default "cuda"; raises without a card).
+
+    :meth:`close` stops and joins the service's threads; a service never
+    closed is closed at interpreter exit."""
 
     MAX_BATCH_STEPS = 32
     MAX_DEVICE_INPUTS = 8
@@ -701,6 +777,50 @@ class ComposeService:
             or Path.home() / ".cache" / "image_transformation_tpu_torch"
             / "serving_steps.json"
         )
+        self._closed = False
+        # threads close() joins besides the drain workers: the warm start,
+        # and (pool, futures) of render_fleet_iter calls not yet joined
+        self._warm_threads: List[threading.Thread] = []
+        self._fleet_pools: List[tuple] = []
+        _LIVE_SERVICES.add(self)
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise ServiceClosedError()
+
+    def close(self, timeout: float = _CLOSE_TIMEOUT_S) -> None:
+        """Stop the service's threads and join them; idempotent.
+
+        Renders asked after this raise :class:`ServiceClosedError`. Work
+        already queued or in flight is settled first: each drain worker
+        retires without a further idle refresh, the warm start stops after
+        its current step, and render_fleet pools drop their queued bundles
+        and finish the running ones. Raises, naming the threads, if any is
+        still alive after ``timeout`` seconds."""
+        from concurrent.futures import wait
+
+        deadline = time.perf_counter() + timeout
+        with self._lock:
+            self._closed = True
+            coalescers = list(self._coalescers.values())
+            warm = list(self._warm_threads)
+            pools = list(self._fleet_pools)
+        _join_all(warm, deadline)
+        for pool, futures in pools:
+            pool.shutdown(wait=False, cancel_futures=True)
+            wait(futures, timeout=max(0.0, deadline - time.perf_counter()))
+            running = [f for f in futures if not f.done()]
+            if running:
+                raise RuntimeError(
+                    f"render_fleet workers still running after close(): {len(running)}"
+                )
+            pool.shutdown(wait=True)  # its threads exit once their futures are done
+        for co in coalescers:
+            co.close(max(0.0, deadline - time.perf_counter()))
+        with self._lock:
+            self._warm_threads.clear()
+            self._fleet_pools[:] = [e for e in self._fleet_pools if e not in pools]
+        _LIVE_SERVICES.discard(self)
 
     def device_name(self) -> str:
         """The service's device, with the card's name on CUDA."""
@@ -788,13 +908,16 @@ class ComposeService:
                 engine = ComposeEngine(bundle.to_arrays(), canvas, self.device)
                 with self._lock:
                     engine = self._engines.setdefault(key, engine)
-                    self._coalescers.setdefault(key, _Coalescer(engine, self.floor))
+                    self._coalescers.setdefault(key, _Coalescer(engine, self.floor, self))
             return engine
 
     def _coalescer(self, stem: str, canvas_size, background: str) -> _Coalescer:
         key = (stem, canvas_size[0], canvas_size[1], background)
         self._engine(stem, canvas_size, background)
         with self._lock:
+            # checked under the lock close() takes: a coalescer handed out
+            # here is one that close() closes
+            self._check_open()
             return self._coalescers[key]
 
     def coalescing_stats(self) -> Dict[str, int]:
@@ -865,6 +988,7 @@ class ComposeService:
         """render() plus a per-request phase split (timings_ms dict with
         solve/queue/device/readback, merged count). Samples feed the
         /v1/stats rolling percentiles."""
+        self._check_open()
         t0 = time.perf_counter()
         placements, canvas_size = self.solve(stem, ratio, layout)
         solve_ms = round((time.perf_counter() - t0) * 1e3, 2)
@@ -1028,6 +1152,7 @@ class ComposeService:
         from ..layout.canvas import compute_canvas_size
         from ..layout.solve import FlexProgram
 
+        self._check_open()
         if background not in ("solid", "gradient"):
             raise ValueError(f"unknown background mode: {background!r}")
         bundle = self._bundle(stem)
@@ -1104,9 +1229,14 @@ class ComposeService:
     ):
         """Yield ``(stem, entry)`` fleet results in COMPLETION order: the
         streaming counterpart of :meth:`render_fleet` (same thread pool,
-        caches, and per-bundle error isolation)."""
+        caches, and per-bundle error isolation).
+
+        The pool stays the service's until its threads are joined: a
+        generator dropped mid-iteration leaves its running bundles to
+        finish, and :meth:`close` joins them."""
         from concurrent.futures import ThreadPoolExecutor, as_completed
 
+        self._check_open()
         stems = self._resolve_stems(stems)
         ratios = list(ratios)
 
@@ -1118,15 +1248,24 @@ class ComposeService:
             except Exception as e:  # noqa: BLE001 - per-bundle isolation
                 return stem, {"error": str(e)}
 
-        pool = ThreadPoolExecutor(max_workers=max(1, parallel))
+        pool = ThreadPoolExecutor(max_workers=max(1, parallel),
+                                  thread_name_prefix="render-fleet")
+        futures = [pool.submit(one, stem) for stem in stems]
+        entry = (pool, futures)
+        with self._lock:
+            self._fleet_pools.append(entry)
         try:
-            futures = [pool.submit(one, stem) for stem in stems]
             for fut in as_completed(futures):
                 yield fut.result()
         finally:
             # abandoned mid-iteration (a streaming client disconnected):
             # drop queued bundles instead of rendering them for nobody
             pool.shutdown(wait=False, cancel_futures=True)
+            if all(f.done() for f in futures):
+                pool.shutdown(wait=True)  # nothing runs: its threads exit now
+                with self._lock:
+                    if entry in self._fleet_pools:
+                        self._fleet_pools.remove(entry)
 
     def stats(self) -> Dict[str, int]:
         """Cache and coalescing counters for observability endpoints (the
@@ -1205,9 +1344,11 @@ class ComposeService:
 
     def warm_start(self) -> int:
         """Rebuild every manifest-recorded batch step whose bundle still
-        exists. Returns the number of steps warmed."""
+        exists (stopping at close()). Returns the number of steps warmed."""
         warmed = 0
         for record in self._load_manifest():
+            if self._closed:
+                break
             stem = record.get("stem", "")
             if not (self.root / stem / "results.json").exists():
                 continue
@@ -1219,11 +1360,24 @@ class ComposeService:
                 )
                 warmed += 1
             except Exception as e:  # noqa: BLE001 - warmup must not crash
-                import sys
-
                 print(f"[serving] warm-start skipped {record}: {e!r}",
                       file=sys.stderr)
         return warmed
+
+    def warm_start_in_background(self) -> threading.Thread:
+        """:meth:`warm_start` on a thread that :meth:`close` joins; it
+        prints the number of steps warmed."""
+        def run():
+            warmed = self.warm_start()
+            if warmed:
+                print(f"[serving] warm-started {warmed} batch step(s)")
+
+        thread = threading.Thread(target=run, daemon=True, name="warm-start")
+        with self._lock:
+            self._check_open()
+            self._warm_threads.append(thread)
+        thread.start()
+        return thread
 
 
 def make_handler(service: ComposeService):
@@ -1520,14 +1674,29 @@ def _encode_renders(results: Dict) -> Dict:
     return {r: _encode_render_entry(entry) for r, entry in results.items()}
 
 
+class _Server(ThreadingHTTPServer):
+    """The daemon's HTTP server; ``server_close()`` also closes the
+    service when ``owns_service`` (serve() built it)."""
+
+    owns_service = False
+
+    def server_close(self) -> None:
+        super().server_close()
+        if self.owns_service:
+            self.service.close()
+
+
 def serve(bundles_root, host: str = "127.0.0.1", port: int = 8601,
           service: Optional[ComposeService] = None, device="cuda"):
     """Build the HTTP daemon on ``device`` (default "cuda"; raises without
     a card); the caller runs ``serve_forever``. A given ``service`` brings
-    its own device."""
+    its own device and stays the caller's to close; one built here is
+    closed by the server's ``server_close()``."""
+    owned = service is None
     service = service or ComposeService(bundles_root, device=device)
-    server = ThreadingHTTPServer((host, port), make_handler(service))
+    server = _Server((host, port), make_handler(service))
     server.service = service
+    server.owns_service = owned
     return server
 
 
@@ -1550,12 +1719,7 @@ def main(argv=None) -> None:
     if not args.no_warm_start:
         # rebuild previously served batch steps in the background so the
         # first real request after a restart finds them built
-        def _warm():
-            warmed = server.service.warm_start()
-            if warmed:
-                print(f"[serving] warm-started {warmed} batch step(s)")
-
-        threading.Thread(target=_warm, daemon=True).start()
+        server.service.warm_start_in_background()
     print(f"serving bundles from {args.bundles_root} on http://{args.host}:{args.port} "
           f"({server.service.device_name()})")
     try:
@@ -1563,6 +1727,8 @@ def main(argv=None) -> None:
     except KeyboardInterrupt:
         pass
     finally:
+        # closes the service serve() built: joins the warm start and the
+        # drain workers
         server.server_close()
 
 
