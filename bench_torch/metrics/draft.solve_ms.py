@@ -1,0 +1,8 @@
+"""draft.solve_ms: median of the harness's ``solve`` spans over the window's drafts."""
+
+from bench_torch.harness import median
+
+
+def read(ctx):
+    spans = ctx.counters.get("spans")
+    return median(spans.durations_ms("solve")) if spans else None

@@ -1,0 +1,5 @@
+"""serve.encode_ms: read by the serve driver over the window's requests (see drivers/serve.py)."""
+
+
+def read(ctx):
+    return ctx.counters.get("encode_ms")
