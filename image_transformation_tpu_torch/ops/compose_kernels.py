@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.timing import span
 from .compose import _blend_window, alpha_over_u8
 from .resize import (
     build_coeffs_host,
@@ -863,9 +864,10 @@ def render_solid_fused_v3_program(
     padded packed plane [B, hp, wp]; crop with
     ``packed_to_u8(out)[:, :H, :W]``. ``objs_p`` is planar and may be
     shared ([1, N, ...]); the batch comes from ``boxes``."""
-    meta, env, (hp, wp) = _render_meta(
-        objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw
-    )
+    with span("itx.render.meta"):
+        meta, env, (hp, wp) = _render_meta(
+            objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw
+        )
     plane = torch.full((meta.shape[0], hp, wp), bg_packed, dtype=torch.int32,
                        device=objs_p.device)
     return fused_v3(plane, objs_p, meta, env)
@@ -901,19 +903,22 @@ def render_solid_fused_v3_reuse_program(
         raise ValueError(f"prev_v plane {tuple(prev_v.shape[1:])} != expected {(hp, wp)}")
     N = objs_p.shape[1]
     dev = prev_v.device
-    prev_boxes = _long(prev_boxes, dev)
-    if static_obj_hw is not None and prev_v.shape[0] >= 2:
-        static_win = _static_window_extents(_static_hw(static_obj_hw, N), (mh_a, mw_a))
-        origins = _restore_meta_static(prev_boxes, canvas_hw, (hp, wp), static_win)
-        extents = static_win
-    else:
-        origins = _fused_v3_meta(obj_hw, prev_boxes, canvas_hw, (hp, wp), (MH, MW))
-        origins = origins[..., :2].contiguous()
-        extents = ((MH, MW),) * N
+    # both metas before either launch, so that one span holds the step's
+    # meta building (neither reads the plane)
+    with span("itx.render.meta"):
+        prev_boxes = _long(prev_boxes, dev)
+        if static_obj_hw is not None and prev_v.shape[0] >= 2:
+            static_win = _static_window_extents(_static_hw(static_obj_hw, N), (mh_a, mw_a))
+            origins = _restore_meta_static(prev_boxes, canvas_hw, (hp, wp), static_win)
+            extents = static_win
+        else:
+            origins = _fused_v3_meta(obj_hw, prev_boxes, canvas_hw, (hp, wp), (MH, MW))
+            origins = origins[..., :2].contiguous()
+            extents = ((MH, MW),) * N
+        meta, env, _ = _render_meta(
+            objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw
+        )
     restore_windows(prev_v, origins, extents, bg_packed)
-    meta, env, _ = _render_meta(
-        objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw
-    )
     return fused_v3(prev_v, objs_p, meta, env)
 
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.timing import span
 from ..ops.compose import composite_batch, composite_canvas_tables_indexed_many
 from ..ops.compose_kernels import (
     REC709,
@@ -144,24 +145,27 @@ def make_solid_render_step(
 
     def step(canvases, objs, obj_hw, boxes):
         del canvases  # the background comes from bg_rgba
-        objs = _on(objs, dev)
-        objs_p = objs if objs.shape[4] != 4 else planarize_objects(objs)
-        obj_hw = _on(obj_hw, dev)
-        boxes = _on(boxes, dev)
-        if state[0] is None:
-            plane = render_solid_fused_v3_program(
-                objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
-                pipelined=True, static_obj_hw=static_obj_hw,
-            )
-        else:
-            prev, prev_boxes = state[0]
-            plane = render_solid_fused_v3_reuse_program(
-                prev, prev_boxes, objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
-                static_obj_hw=static_obj_hw, pipelined=True,
-            )
-        if reuse:
-            state[0] = (plane, boxes)
-        return plane, run_stat(plane)
+        with span("itx.step"):
+            objs = _on(objs, dev)
+            objs_p = objs if objs.shape[4] != 4 else planarize_objects(objs)
+            obj_hw = _on(obj_hw, dev)
+            boxes = _on(boxes, dev)
+            with span("itx.render", dev):
+                if state[0] is None:
+                    plane = render_solid_fused_v3_program(
+                        objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
+                        pipelined=True, static_obj_hw=static_obj_hw,
+                    )
+                else:
+                    prev, prev_boxes = state[0]
+                    plane = render_solid_fused_v3_reuse_program(
+                        prev, prev_boxes, objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
+                        static_obj_hw=static_obj_hw, pipelined=True,
+                    )
+            if reuse:
+                state[0] = (plane, boxes)
+            with span("itx.stat", dev):
+                return plane, run_stat(plane)
 
     step.release = lambda: state.__setitem__(0, None)
     return step
