@@ -34,7 +34,13 @@ exits non-zero:
    chain (K3 + K2 in place) equal to fresh renders; then the main path of
    the slice, throughput_sweep(kernel="pallas") at 1080p B=256 with
    warmup 1 and 5 reps, with the K2/K3 launch counts reset just before and
-   read just after (both must be > 0), printing canvases/s;
+   read just after (both must be > 0), printing canvases/s; then
+   kernel-table row 16, the run statistic at the benchmark cell's shape
+   (B=256, the 1080-wide by 1920-high crop of a rendered padded plane):
+   the luma kernel (ops/compose_kernels.packed_luma) == its plain version
+   bit for bit, its launch count read around it, median CUDA-event times
+   of both in turns beside its byte bound and the float16 path it replaced
+   (library_ms), and the profiler's split of its two launches;
 6. hybrid path (squarespace, 1080x1920, B=64, boxes from seed 0 plus an
    identity box and the edge box of benchmarks/validate_hw.py:100): for
    each clamped x pipelined form of composite_batch_hybrid_packed, K4
@@ -171,6 +177,11 @@ BLEND_REPLACES = ("image_transformation_tpu/ops/compose_pallas.py:1210, :1457, :
 PLANAR_REPLACES = "image_transformation_tpu/ops/compose_pallas.py:1029 (kernel-table row 2)"
 STAGE_REPLACES = "benchmarks/bisect_resize.py:271 (kernel-table row 15)"
 KERNEL_REPLACES_ROW1 = "image_transformation_tpu/ops/compose_pallas.py:829 (kernel-table row 1)"
+LUMA_SOURCE = "image_transformation_tpu_torch/csrc/packed_luma.cu"
+LUMA_REPLACES = ("none (kernel-table row 16): JAX leaves packed_luma, "
+                 "image_transformation_tpu/ops/compose_pallas.py:2109, to XLA")
+#: the luma's geometry: the benchmark cell's canvas, 1080 wide by 1920 high
+LUMA_HW = (1920, 1080)
 LIBRARY_NOTE = ("library_ms null: no single PyTorch call computes Pillow's fixed-point "
                 "resample or alpha-over, or fills a set of per-placement windows")
 #: (name, clamped, pipelined): the four forms K4 replaces, by kernel-table row
@@ -605,7 +616,7 @@ def phase_batched(smi: str):
     )
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
-    for name in ("fused_v3", "restore_windows"):
+    for name in ("fused_v3", "restore_windows", "packed_luma"):
         if launches[name] <= 0:
             raise AssertionError(f"[batched] the sweep launched {name} {launches[name]} times")
     r = sweep["ratios"]["16:9"]
@@ -614,8 +625,67 @@ def phase_batched(smi: str):
     print(f"[batched] throughput_sweep squarespace 16:9 {r['canvas'][0]}x{r['canvas'][1]} "
           f"B={r['batch']} pallas warmup 1 reps 5: {r['canvases_per_sec']:.1f} canvases/s "
           f"({r['seconds_per_batch'] * 1e3:.3f} ms per batch); launches K2 "
-          f"{launches['fused_v3']}, K3 {launches['restore_windows']} on {smi}")
+          f"{launches['fused_v3']}, K3 {launches['restore_windows']}, luma "
+          f"{launches['packed_luma']} on {smi}")
     return results, launches, sweep
+
+
+def phase_luma(smi: str) -> dict:
+    """Kernel-table row 16: the luma kernel at the benchmark cell's shape."""
+    import numpy as np
+    import torch
+
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.ops.roofline import bound
+    from image_transformation_tpu_torch.parallel.sweep import (
+        make_solid_render_step,
+        random_downscale_boxes,
+    )
+
+    device = torch.device("cuda", 0)
+    arrays = load_bundle(ROOT / "data" / "squarespace").to_arrays()
+    H, W = LUMA_HW
+    B, N = ROOFLINE_B, arrays.obj_hw.shape[0]
+    static = tuple(tuple(int(v) for v in row) for row in arrays.obj_hw)
+    rng = np.random.default_rng(0)
+    boxes = torch.from_numpy(np.stack(
+        [random_downscale_boxes(rng, arrays.obj_hw, (H, W)) for _ in range(B)])).to(device)
+    hw = torch.from_numpy(np.broadcast_to(arrays.obj_hw, (B, N, 2)).copy()).to(device)
+    objs_p = ck.planarize_objects(torch.from_numpy(arrays.objects).to(device)[None])
+    step = make_solid_render_step((H, W), arrays.objects.shape[1:3], static_obj_hw=static,
+                                  stat="fence", device="cuda")
+    plane, _ = step(None, objs_p, hw, boxes)
+    crop = plane[:, :H, :W]
+    ck.reset_launch_counts()
+    got = ck.packed_luma(crop)
+    want = ck.packed_luma_reference(crop)
+    torch.cuda.synchronize()
+    launches = ck.LAUNCHES["packed_luma"]
+    if launches != 1:
+        raise AssertionError(f"[luma] one call launched the kernel {launches} times")
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"[luma] kernel != plain version, max abs err {err}")
+    rgb = crop.view(torch.uint8).unflatten(-1, (W, 4))[..., :3]
+    ms, plain_ms, raw = _in_turns(lambda: ck.packed_luma(crop),
+                                  lambda: ck.packed_luma_reference(crop), 50, 3)
+    library_ms = cuda_ms(lambda: rgb.to(torch.float16).sum(dim=(1, 2), dtype=torch.float32), 10)
+    nbytes = B * (H * W * 4 + 4)  # one read of each crop, its float out
+    res = {**bound(nbytes, 0, 0, torch.cuda.get_device_name(0)), "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "launches": launches}
+    us, _, _ = _profiled(lambda: ck.packed_luma(crop), 20)
+    split = ", ".join(f"{name[:40]} {t:.1f} us" for name, t in sorted(us.items(), key=lambda kv: -kv[1]))
+    print(f"[luma] row 16 crop {H}x{W} of plane {tuple(plane.shape)} (row stride {crop.stride(1)}) "
+          f"B={B}: kernel == plain (max abs err {err}); kernel {ms:.4f} ms ({raw[0]:.4f}, "
+          f"{raw[1]:.4f}; {nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms ({raw[2]:.3f}, "
+          f"{raw[3]:.3f}), float16 path (library_ms) {library_ms:.3f} ms, {_bound_text(res)}, "
+          f"share of the bound {res['bound_ms'] / ms:.4f} on {smi}")
+    print(f"[luma] launches per call (profiler, per call): {split}")
+    step.release()
+    del plane, crop, rgb, step
+    torch.cuda.empty_cache()
+    return res
 
 
 def _pil_canvas(bundle, hw, rgba, boxes):
@@ -2167,7 +2237,7 @@ SHARE_LIMIT = 1.05
 LIVE_SHORTFALL = 0.10
 
 
-def row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15):
+def row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15, luma):
     """(kernel-table row, kernel, geometry, result) of every row's timed
     geometry in the phases above, each result with ``ms`` and its bound."""
     rows = [("12", "K1", f"row12_{g}", kernel[g]) for g in kernel]
@@ -2177,6 +2247,7 @@ def row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15):
              ("14", "K3", "sweep_1080p_b64", batched["restore_windows"])]
     rows += [(r[3:], "K4", "1080p_b64", v) for r, v in {**hybrid, **ops_rows}.items()]
     rows += [("15", "K4 stage", v, r) for v, r in row15["variants"].items()]
+    rows.append(("16", "luma", f"score1080_b{ROOFLINE_B}", luma))
     return rows
 
 
@@ -2333,6 +2404,7 @@ def main_smoke() -> int:
     kernel = phase_kernel(smi)
     launches = phase_main_path()
     batched, batched_launches, _ = phase_batched(smi)
+    luma = phase_luma(smi)
     hybrid, hybrid_launches, ref = phase_hybrid(smi)
     ops_rows, row1, row15 = phase_ops(smi, ref)
     del ref
@@ -2342,7 +2414,8 @@ def main_smoke() -> int:
     mesh_launches = phase_mesh(smi)
     ui_launches = phase_ui(smi)
     install_launches = phase_install(smi)
-    phase_roofline(smi, row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15))
+    phase_roofline(smi, row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15,
+                                   luma))
     cli, serve = kernel["cli_9x16_b1"], kernel["serve_1080p_b64"]
     packed = {**hybrid, **{k: v for k, v in ops_rows.items() if k != "row2"}}
     print(f"[kernels] {LIBRARY_NOTE}")
@@ -2375,6 +2448,8 @@ def main_smoke() -> int:
                row15["variants"]["full"],
                max_abs_err=max(r["max_abs_err"] for r in row15["variants"].values()),
                variants=row15["variants"]),
+        _entry("packed_luma", LUMA_SOURCE, LUMA_REPLACES,
+               batched_launches["packed_luma"] + luma["launches"], luma),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -156,6 +156,18 @@ def span(name: str, device: Optional[torch.device] = None):
     return _Span(name, device)
 
 
+def launch_range(name: str):
+    """A profiler range ``name`` to open around a hand-written kernel's
+    launch, while a torch profiler records (else nothing). The trace links
+    a kernel to the innermost such range open at its launch, as it links a
+    torch op's kernels to the op; without one, a ctypes launch links to the
+    enclosing program span, which may have opened before a caller's own
+    range around the wrapper."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Range(name)
+
+
 def _quantile(s: List[float], q: float) -> float:
     """The q-quantile of sorted ``s``, linear between order statistics."""
     r = (len(s) - 1) * q

@@ -46,6 +46,10 @@ launches: bounds (each placement's box of nonzero source pixels,
 - :func:`composite_batch_hybrid_packed` (every flag),
   :func:`composite_batch_aligned`, :func:`composite_batch_hybrid`.
 
+The run statistic (``csrc/packed_luma.cu``, no TPU kernel: JAX leaves the
+reduction to XLA): :func:`packed_luma` / :func:`packed_luma_reference`,
+each canvas's mean Rec.709 luminance of a packed crop from one read of it.
+
 K1 also carries the gen-1 planar compose (row 1): :func:`_pallas_compose_planar`,
 :func:`composite_batch_pallas` and :func:`composite_batch_pallas_host_tables`.
 
@@ -65,7 +69,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.timing import span
+from ..core.timing import launch_range, span
 from .compose import _blend_window, alpha_over_u8
 from .resize import (
     build_coeffs_host,
@@ -83,7 +87,7 @@ FLAG_IDENTITY = 2
 
 #: launches since the last reset (one per launching wrapper call on CUDA)
 LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "restore_windows": 0, "window_blend": 0,
-            "window_blend_planar": 0, "window_blend_stage": 0}
+            "window_blend_planar": 0, "window_blend_stage": 0, "packed_luma": 0}
 
 _MAX_GRID_X = (1 << 31) - 1  # CUDA's limit on gridDim.x, which carries B*N
 _MAX_GRID_Z = 65535  # CUDA's limit on gridDim.y and gridDim.z
@@ -221,6 +225,8 @@ _ARGTYPES = {
     "window_blend_scratch_bytes": [ctypes.c_int] * 3,
     "window_blend_slices": [ctypes.c_int, ctypes.c_void_p],
     "window_blend_smem": [ctypes.c_int, ctypes.c_void_p],
+    "packed_luma_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
+                          + [ctypes.c_int] + [ctypes.c_double] * 4 + [ctypes.c_void_p],
 }
 _RESTYPES = {"fused_compose_scratch_bytes": ctypes.c_longlong,
              "window_blend_scratch_bytes": ctypes.c_longlong}
@@ -461,20 +467,69 @@ def packed_to_u8(packed: torch.Tensor) -> torch.Tensor:
     return packed.view(torch.uint8).view(*packed.shape, 4)
 
 
+#: rows of a canvas that one block of the luma kernel's first launch reads
+_LUMA_BAND_ROWS = 32
+
+
+def _check_luma_crop(crop_i32: torch.Tensor) -> None:
+    if crop_i32.dtype != torch.int32:
+        raise TypeError(f"packed_luma takes a packed int32 crop, got {crop_i32.dtype}")
+    if crop_i32.dim() != 3:
+        raise ValueError(f"packed_luma takes [B, H, W], got {tuple(crop_i32.shape)}")
+    if crop_i32.stride(-1) != 1:
+        raise ValueError(f"packed_luma needs a last stride of 1, got strides {crop_i32.stride()}")
+
+
+def packed_luma_reference(crop_i32: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the luma kernel, on any device: int64 sums
+    of each canvas's R, G and B bytes, then ``(wr Sr + wg Sg + wb Sb) / (H W)``
+    in float64, rounded to float32, the kernel's operations in its order.
+    The division is by a tensor, as the kernel divides (torch's CUDA
+    division by a scalar multiplies by its reciprocal)."""
+    _check_luma_crop(crop_i32)
+    B, H, W = crop_i32.shape
+    rgb = crop_i32.view(torch.uint8).unflatten(-1, (W, 4))[..., :3]
+    sums = rgb.sum(dim=(1, 2), dtype=torch.int64).to(torch.float64)
+    wr, wg, wb = REC709
+    lum = wr * sums[:, 0] + wg * sums[:, 1] + wb * sums[:, 2]
+    return (lum / torch.full_like(lum, max(1, H * W))).to(torch.float32)
+
+
 def packed_luma(crop_i32: torch.Tensor) -> torch.Tensor:
     """Mean Rec.709 luminance per canvas of a packed batch [B, H, W], f32.
 
-    The RGB bytes of the (possibly strided) crop go to float16 (exact for
-    0..255) and are summed per channel with float32 accumulation, torch's
-    one mixed-precision reduction that reads its input without a cast copy
-    (an int64 sum of the bytes first copies them all to int64, which costs
-    ~4x the time at 1080p B=256). The JAX package reduces float32
-    luminances; the two agree to float32 rounding (~1e-6 relative)."""
+    ``crop_i32`` is int32 with a last stride of 1 and any batch and row
+    strides (a crop of the padded plane). On a CUDA device this launches
+    the luma kernel (``csrc/packed_luma.cu``: one read of the crop, exact
+    integer channel sums) and raises if the launch fails; on the CPU it
+    runs :func:`packed_luma_reference`. Both give the same bits. The JAX
+    package reduces float32 luminances; the two agree to float32 rounding
+    (~1e-6 relative)."""
+    _check_luma_crop(crop_i32)
+    if crop_i32.device.type == "cpu":
+        return packed_luma_reference(crop_i32)
+    if crop_i32.device.type != "cuda":
+        raise ValueError(f"packed_luma runs on cuda or cpu, not {crop_i32.device}")
     B, H, W = crop_i32.shape
-    rgb = crop_i32.view(torch.uint8).unflatten(-1, (W, 4))[..., :3].to(torch.float16)
-    sums = rgb.sum(dim=(1, 2), dtype=torch.float32)
+    dev = crop_i32.device
+    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    bands = max(1, -(-H // _LUMA_BAND_ROWS))
+    if B * bands > _MAX_GRID_X:
+        raise ValueError(f"packed_luma: {B} canvases of {H} rows exceed one launch's grid")
+    part = torch.empty((B * bands * 3,), dtype=torch.int64, device=dev)
     wr, wg, wb = REC709
-    return (wr * sums[:, 0] + wg * sums[:, 1] + wb * sums[:, 2]) / max(1, H * W)
+    fn = _kernel_entry("packed_luma_launch")
+    with _device_guard(dev), launch_range("packed_luma"):
+        rc = fn(crop_i32.data_ptr(), part.data_ptr(), out.data_ptr(), B, H, W,
+                crop_i32.stride(0), crop_i32.stride(1), bands, float(max(1, H * W)),
+                wr, wg, wb, _stream_handle(dev))
+    del part  # freed to the caching allocator, in stream order
+    if rc != 0:
+        raise RuntimeError(f"packed_luma: kernel launch failed with CUDA error {rc}")
+    LAUNCHES["packed_luma"] += 1
+    return out
 
 
 def packed_luma_masked(crop_i32: torch.Tensor, canvas_wh) -> torch.Tensor:

@@ -33,7 +33,6 @@ from ..core.device import resolve_device
 from ..core.timing import span
 from ..ops.compose import composite_batch, composite_canvas_tables_indexed_many
 from ..ops.compose_kernels import (
-    REC709,
     composite_batch_fused_v3,
     pack_rgba_scalar,
     packed_luma,
@@ -59,12 +58,15 @@ def _on(x, dev: torch.device) -> torch.Tensor:
 
 
 def _luma_u8(out_u8: torch.Tensor) -> torch.Tensor:
-    """Per-canvas Rec.709 luminance of u8 RGBA [B, H, W, 4], f32 (the
-    one-pass reduction of ``packed_luma``)."""
-    sums = out_u8[..., :3].to(torch.float16).sum(dim=(1, 2), dtype=torch.float32)
-    wr, wg, wb = REC709
-    lum = wr * sums[:, 0] + wg * sums[:, 1] + wb * sums[:, 2]
-    return lum / max(1, out_u8.shape[1] * out_u8.shape[2])
+    """Per-canvas Rec.709 luminance of u8 RGBA [B, H, W, 4], f32:
+    ``packed_luma`` of the int32 view of the bytes, or of a contiguous copy
+    where that view would not be a packed crop (a pixel's four bytes not
+    adjacent, pixels not 4 bytes apart, or rows not on 4-byte words)."""
+    px = out_u8
+    if (px.stride(-1) != 1 or px.stride(-2) != 4 or px.storage_offset() % 4
+            or any(s % 4 for s in px.stride()[:-2])):
+        px = px.clone(memory_format=torch.contiguous_format)
+    return packed_luma(px.view(torch.int32).squeeze(-1))
 
 
 def make_batched_compose(

@@ -125,6 +125,14 @@ def test_span_stamps_bracket_the_profiler_ranges():
     assert statistics.median(lead) < 50_000 and statistics.median(lag) < 50_000
 
 
+def test_launch_range_is_a_profiler_range_only_while_one_records():
+    assert timing.launch_range("packed_luma") is timing._OFF
+    with recording() as prof:
+        with timing.launch_range("packed_luma"):
+            torch.zeros(4).add_(1)
+    assert "packed_luma" in {e.name for e in prof.events()}
+
+
 def test_step_timer_without_a_profiler_keeps_its_echo_and_log(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(timing, "record_function", _raise)
     monkeypatch.setattr(timing, "_Range", _raise)
