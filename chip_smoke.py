@@ -41,7 +41,20 @@ exits non-zero:
    bit for bit, its launch count read around it, median CUDA-event times
    of both in turns beside its byte bound and the float16 path it replaced
    (library_ms), and the profiler's split of its two launches;
-6. hybrid path (squarespace, 1080x1920, B=64, boxes from seed 0 plus an
+6. gradient path, kernel-table row 17 (the squarespace_uhd.score916 cell's
+   shapes from its configuration and mix: 2160 wide x 3840 high, B=256,
+   per-object output bounds at s0, the 12-level upscaled boxes from seed
+   0), on the bundle's gradient axis and then on the other:
+   make_gradient_render_step's fresh render, then 3 reuse steps with the
+   launch counts reset just before and read just after (K3 3, K2 3 calls
+   in 3 x ceil(B / chunk) chunk launches, luma 3); the last reuse step ==
+   a fresh render; on that step's own inputs, K3's ramp form (ROW_RAMP or
+   COL_RAMP) == restore_windows_reference and K2's MIXED instance (its
+   growing axes' exact-argument tables, over its chunks) ==
+   fused_v3_reference (in slices of 32 canvases), bit-exact, with median
+   CUDA-event times of the kernels beside their bounds (K2 on the bundle's
+   axis), the plain versions' times, and ptxas's figures of the instances;
+7. hybrid path (squarespace, 1080x1920, B=64, boxes from seed 0 plus an
    identity box and the edge box of benchmarks/validate_hw.py:100): for
    each clamped x pipelined form of composite_batch_hybrid_packed, K4
    (ops/compose_kernels.window_blend) against window_blend_reference on
@@ -54,21 +67,21 @@ exits non-zero:
    blend) with ptxas's figures; the packed_out plane's bytes
    equal the u8 output; 4 canvases within 2/255 of PIL's own LANCZOS
    resize + alpha_composite;
-7. ops path (the hybrid batch): for kernel-table rows 7, 8, 9 (the
+8. ops path (the hybrid batch): for kernel-table rows 7, 8, 9 (the
    clamped producer), 11 (row-baked), 4 (window-aligned) and 2 (planar),
    the K4 entry against its plain version on that row's producer outputs,
    bit-exact, with median CUDA-event times of both; then the row's public
    function (composite_batch_hybrid_packed's flag, composite_batch_aligned,
    composite_batch_hybrid) with its launch count reset just before and read
    just after (must be > 0), within 2/255 of composite_batch (the measured
-   max is printed; 0 is expected); the bounds launch's bytes as in 6, and
+   max is printed; 0 is expected); the bounds launch's bytes as in 7, and
    the packed and planar entries' launches with ptxas's figures. Row 1:
    composite_batch_pallas_host_tables
    at the CLI geometry and at 1080p B=64, K1 against its plain version on
    its arguments, and the output equal to composite_exact and PIL. Row 15:
    the five stage variants of K4 timed in turn (launch count read around
    them), each against its plain version, bit-exact;
-8. variants path (the multi-ratio fused render, pipeline/fused.py, at a
+9. variants path (the multi-ratio fused render, pipeline/fused.py, at a
    fleet user's size): run_fleet over squarespace and audio_book x 8 ratios
    at a 1920x1080 pixel budget, kernel "pallas", 20 reps, with the K2
    launch count reset just before and read just after (one launch per pass
@@ -82,7 +95,7 @@ exits non-zero:
    and the CPU, equal PNGs; then torch.profiler's split of a pass (K2, the
    device solve, the luma, the rest) and the solve's launches per pass, at
    V=8 and V=64;
-9. serving (serving/server.py in process on the card, over HTTP, at the
+10. serving (serving/server.py in process on the card, over HTTP, at the
    bundles' own sizes from their 970x250 backgrounds, e.g. 657x369 at
    9:16; N = 4 objects on squarespace, 3 on audio_book): /healthz names
    the card; /v1/render on both bundles x 9:16, 1:1, 16:9, 4:1 x solid,
@@ -98,10 +111,10 @@ exits non-zero:
    p50/p95 for 16 concurrent clients, render_batch's p50 at 8 ratios, and
    measure_device_ms for one request and a merge of 8; then both services
    are closed (ComposeService.close) and no drain worker is left alive;
-10. agentic: run_workflow on the card with the fake client, squarespace
+11. agentic: run_workflow on the card with the fake client, squarespace
    9:16, 2 iterations, K1's count read around it (> 0), every draft and
    layout == the CPU run's, the drafts == PIL;
-11. mesh (parallel/mesh.py on torch.distributed): two gloo ranks, both on
+12. mesh (parallel/mesh.py on torch.distributed): two gloo ranks, both on
    cuda:0 (spawned; NCCL refuses two ranks on one card), then a world of
    one over nccl in this process (make_mesh with no torchrun world). Each
    rank runs make_sharded_solid_render at 1080x1920, B=64 in all
@@ -114,20 +127,20 @@ exits non-zero:
    the single-GPU run byte for byte (luma within rtol 1e-5; rank 0 holds
    the fleet's PNGs and boxes against the single-GPU fleet's), and the
    step's and the all-reduce's ms are printed;
-12. ui: the port's headless main app on the card (squarespace 9:16, fake
+13. ui: the port's headless main app on the card (squarespace 9:16, fake
    client, 2 refinements) with K1's count read around it (> 0), its drafts
    == PIL; compat.compositor.composite on the card == PIL, K1 launched once;
    compat.macro_placement_test.main (the reference module's CLI, fake
    client, 1 refinement) with --device cuda (K1's count read around it,
    > 0) and --device cpu, drafts byte-equal to each other and == PIL;
-13. install: the package copied (no bytecode) into a directory with no
+14. install: the package copied (no bytecode) into a directory with no
    pyproject.toml above it, then in a subprocess whose cwd and PYTHONPATH
    hold only that copy and whose HOME is another temporary directory, one
    ops.compose.composite_exact on the card (K1, count read around it): the
    kernels build from the copy's csrc/ into that HOME's
    .cache/image_transformation_tpu_torch/kernels/, and the result == K1's
    plain version == PIL;
-14. roofline (ops/roofline.py, ops/roofline_compute.py), under the port's
+15. roofline (ops/roofline.py, ops/roofline_compute.py), under the port's
    PhaseWatchdog with a deadline per sub-phase (a stall prints one line
    naming it and exits 3): the bench workload, squarespace objects shared
    (planar), 1080x1920, B=256, boxes from seed 0, make_solid_render_step
@@ -141,7 +154,7 @@ exits non-zero:
    fails when a share whose bytes do not fit in L2 reads above 1.05 (a
    count above the work) or when the live-memory prediction is under the
    measured peak by more than 10%;
-15. one JSON line of kernel results (each with its bound from
+16. one JSON line of kernel results (each with its bound from
    ops/roofline.py: the larger of the bytes it must move over the card's
    HBM rate and its resample multiply-adds on the int8 tensor cores, three
    limbs each, H100 peaks from NVIDIA's datasheet), the nvidia-smi line,
@@ -190,16 +203,18 @@ HYBRID_FORMS = (("row3", False, False), ("row5", False, True),
 BATCH_HW = (1080, 1920)
 HYBRID_B = 64
 #: K1's and K2's launches per wrapper call: (label, a substring of the
-#: kernel's mangled name in ptxas's report)
+#: kernel's mangled name in ptxas's report, and of its name in a profiler
+#: trace); K2_PTXAS names the instance the solid renders launch
 K1_LAUNCHES = (("bounds", "k1_bounds"), ("resample", "k1_resample"), ("blend", "K1Rects"))
 K2_LAUNCHES = (("resample", "v3_resample"), ("blend", "V3Rects"))
+K2_PTXAS = (("resample", "v3_resampleILb0E"), ("blend", "V3Rects"))
 #: K4's launches per call, by a substring of the kernel's name in a profiler
 #: trace (any instantiation), and in ptxas's report (the instantiation the
 #: packed and the planar entries launch on the smoke's aligned tensors)
 K4_LAUNCHES = (("bounds", "k4_bounds"), ("blend", "k4_blend"))
 K4_PTXAS = {"packed": (("bounds", "k4_boundsILb0ELb1E"), ("blend", "k4_blendILb0ELi4ELb1E")),
             "planar": (("bounds", "k4_boundsILb1ELb1E"), ("blend", "k4_blendILb1ELi4ELb1E"))}
-K3_LAUNCHES = (("restore", "restore_kernel"),)
+K3_LAUNCHES = (("restore", "restore_kernelILi0E"),)
 
 
 def smi_line() -> str:
@@ -561,7 +576,7 @@ def phase_batched(smi: str):
           f"K2 {ms:.3f} ms ({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms "
           f"({raw[2]:.3f}, {raw[3]:.3f}), {_bound_text(results['fused_v3'])} on {smi}")
     smem = ck.launch_smem("fused_v3", *objs_p.shape[3:], N)
-    print(f"[batched] K2 launches per call: {launch_text(K2_LAUNCHES, smem)}")
+    print(f"[batched] K2 launches per call: {launch_text(K2_PTXAS, smem)}")
     del work_k, work_p
 
     # K3 vs its plain version: restore the windows of that render
@@ -686,6 +701,199 @@ def phase_luma(smi: str) -> dict:
     del plane, crop, rgb, step
     torch.cuda.empty_cache()
     return res
+
+
+#: K2's MIXED instance (exact-argument tables on growing axes) and K3's ramp
+#: forms, by a substring of the kernel's mangled name in ptxas's report
+K2_MIXED_LAUNCHES = (("resample", "v3_resampleILb1E"), ("blend", "V3Rects"))
+K3_RAMP_LAUNCHES = {True: (("restore", "restore_kernelILi1E"),),  # ROW_RAMP
+                    False: (("restore", "restore_kernelILi2E"),)}  # COL_RAMP
+#: the UHD cell's configuration and mix (squarespace_uhd.score916)
+UHD_CONFIG = "bench_torch/configs/squarespace_uhd.json"
+UHD_MIX = "bench_torch/mixes/score916.json"
+#: canvases per slice of K2's plain version at the UHD shapes (its tables
+#: for a whole batch of 256 would take tens of GB)
+UHD_PLAIN_SLICE = 32
+UHD_REUSE_STEPS = 3
+
+
+class _CaptureReuse:
+    """Wraps K3 and K2 as the reuse program calls them (compose_kernels'
+    module names) and, on the last call armed, keeps the plane before K3,
+    the plane before K2 and each one's other arguments, to hold both
+    against their plain versions on the card's own inputs afterwards."""
+
+    def __init__(self):
+        self.armed = False
+        self.k3 = self.k2 = None
+
+    def __enter__(self):
+        from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+        self._real = (ck.restore_windows, ck.fused_v3)
+        restore, compose = self._real
+
+        def restore_rec(plane, origins, extents, bg):
+            if self.armed:
+                self.k3 = (plane.clone(), origins.clone(), extents, bg)
+            return restore(plane, origins, extents, bg)
+
+        def compose_rec(plane, objs_p, meta, out_max_hw):
+            if self.armed:
+                self.k2 = (plane.clone(), objs_p, meta.clone(), out_max_hw)
+            return compose(plane, objs_p, meta, out_max_hw)
+
+        ck.restore_windows, ck.fused_v3 = restore_rec, compose_rec
+        return self
+
+    def __exit__(self, *exc):
+        from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+        ck.restore_windows, ck.fused_v3 = self._real
+
+
+def _canvas_err(a, b) -> int:
+    """:func:`_max_abs_err` taken a canvas at a time, over the canvases that
+    differ (at the UHD shapes a batch's widened copies would take ~70 GB)."""
+    import torch
+
+    return max((_max_abs_err(x, y) for x, y in zip(a, b) if not torch.equal(x, y)), default=0)
+
+
+def _k2_bound_sliced(plane, objs_p, meta, env, per):
+    """``k2_bound`` of a batch whose plain version runs in slices of
+    ``per`` canvases: bytes, multiply-adds and scalar time summed over the
+    slices, the shared objects read once."""
+    from image_transformation_tpu_torch.ops.roofline import bound, k2_bound
+
+    parts = [k2_bound(plane[i:i + per], objs_p, meta[i:i + per], env)
+             for i in range(0, plane.shape[0], per)]
+    nbytes = sum(r["bound_gbytes"] for r in parts) * 1e9 - (len(parts) - 1) * objs_p.numel()
+    out = bound(nbytes, sum(r["bound_gmacs"] for r in parts) * 1e9)
+    out["scalar_ms"] = sum(r["scalar_ms"] for r in parts)
+    return out
+
+
+def phase_gradient(smi: str):
+    """Kernel-table row 17 (K3's ramp forms) and K2's MIXED instance at the
+    UHD cell's shapes: make_gradient_render_step at 2160 wide x 3840 high,
+    B=256, the cell's per-object output bounds at s0 and its 12-level boxes
+    (seed 0), once on the bundle's gradient axis and once on the other."""
+    import numpy as np
+    import torch
+
+    from bench_torch.drivers.score_up import level_sizes, scale_levels, up_pool
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.ops.background import gradient_spec
+    from image_transformation_tpu_torch.ops.roofline import k3_bound
+    from image_transformation_tpu_torch.parallel import make_gradient_render_step
+
+    cfg = json.loads((ROOT / UHD_CONFIG).read_text())
+    mix = json.loads((ROOT / UHD_MIX).read_text())
+    device = torch.device("cuda", 0)
+    bundle = load_bundle(ROOT / cfg["bundle"])
+    arrays = bundle.to_arrays()
+    (H, W), B = mix["canvas_hw"], mix["batch"]
+    N = arrays.obj_hw.shape[0]
+    sizes = level_sizes(arrays.obj_hw, scale_levels((H, W), cfg["original_wh"],
+                                                    mix["scale_levels"], mix["scale_range"]))
+    bounds = tuple(tuple(int(v) for v in row) for row in sizes.max(axis=1))
+    envelope = (max(h for h, _ in bounds), max(w for _, w in bounds))  # as the step takes it
+    pool = torch.from_numpy(up_pool(np.random.default_rng(0), sizes, (H, W),
+                                    UHD_REUSE_STEPS + 1, B)).to(device)
+    objs_p = ck.planarize_objects(torch.from_numpy(arrays.objects[None]).to(device))
+    hw = torch.from_numpy(np.broadcast_to(arrays.obj_hw, (B, N, 2)).copy()).to(device)
+    c1, c2, bundle_axis = gradient_spec(
+        torch.from_numpy(np.asarray(bundle.background, np.uint8).copy()).to(device))
+    results, counts = {}, {}
+    for horizontal in (bundle_axis, not bundle_axis):
+        axis = "horizontal" if horizontal else "vertical"
+        tag = f"[gradient] {axis}" + (" (the bundle's axis)" if horizontal == bundle_axis else "")
+        step = make_gradient_render_step((H, W), bounds, (c1, c2, horizontal), device="cuda")
+        step(None, objs_p, hw, pool[0])  # the fresh render
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        with _CaptureReuse() as cap:
+            for i in range(1, UHD_REUSE_STEPS + 1):
+                cap.armed = i == UHD_REUSE_STEPS
+                plane, _ = step(None, objs_p, hw, pool[i])
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        pre_k3, origins, extents, ramp = cap.k3
+        pre_k2, _, meta, env = cap.k2
+        chunk = max(1, min(B, ck._V3_SCRATCH_BYTES // (N * 4 * env[0] * env[1])))
+        want = {"restore_windows": UHD_REUSE_STEPS, "fused_v3": UHD_REUSE_STEPS,
+                "fused_v3_chunks": UHD_REUSE_STEPS * -(-B // chunk),
+                "packed_luma": UHD_REUSE_STEPS}
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"{tag} {UHD_REUSE_STEPS} reuse steps launched {launches}, "
+                                 f"expected {want}")
+        fresh = ck.render_fused_v3_program(objs_p, hw, pool[UHD_REUSE_STEPS], (H, W), ramp,
+                                           envelope, pipelined=True, static_obj_hw=bounds)
+        if not torch.equal(plane, fresh):
+            raise AssertionError(f"{tag} reuse step {UHD_REUSE_STEPS} != a fresh render")
+        del fresh
+
+        # K3's ramp form == its plain version on the card's own input
+        err = _canvas_err(ck.restore_windows_reference(pre_k3, origins, extents, ramp), pre_k2)
+        if not torch.equal(pre_k3, pre_k2):
+            raise AssertionError(f"{tag} K3 != plain version, max abs err {err}")
+        del pre_k3
+        work = pre_k2.clone()
+        ms, plain_ms, raw = _in_turns(
+            lambda: ck.restore_windows(work, origins, extents, ramp),
+            lambda: ck.restore_windows_reference(work, origins, extents, ramp), 10, 2)
+        del work
+        k3b = k3_bound(pre_k2, origins, extents)
+        r3 = results[f"restore_{axis}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **k3b)
+        print(f"{tag} K3 ramp form B={B} N={N} plane {tuple(pre_k2.shape[1:])} windows "
+              f"{list(extents)}: K3 == plain (max abs err {err}); K3 {ms:.4f} ms ({raw[0]:.4f}, "
+              f"{raw[1]:.4f}), plain {plain_ms:.3f} ms ({raw[2]:.3f}, {raw[3]:.3f}), "
+              f"{_bound_text(r3)}; {k3b['summed_px']} pixels summed over the windows, "
+              f"{k3b['union_px']} in their union; launches per call: "
+              f"{launch_text(K3_RAMP_LAUNCHES[horizontal], ck.launch_smem('restore_windows', 0, 0, N))}"
+              f" on {smi}")
+
+        # K2 (MIXED, chunked) == its plain version on the card's own input, by slices
+        err, t0 = 0, time.perf_counter()
+        for i in range(0, B, UHD_PLAIN_SLICE):
+            part = ck.fused_v3_reference(pre_k2[i:i + UHD_PLAIN_SLICE].clone(), objs_p,
+                                         meta[i:i + UHD_PLAIN_SLICE], env)
+            err = max(err, _canvas_err(part, plane[i:i + UHD_PLAIN_SLICE]))
+            if not torch.equal(part, plane[i:i + UHD_PLAIN_SLICE]):
+                raise AssertionError(f"{tag} K2 != plain version on canvases {i}+, "
+                                     f"max abs err {err}")
+            del part
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if axis == ("horizontal" if bundle_axis else "vertical"):
+            work = pre_k2.clone()
+            ms = cuda_ms(lambda: ck.fused_v3(work, objs_p, meta, env), 5)
+            ms2 = cuda_ms(lambda: ck.fused_v3(work, objs_p, meta, env), 5)
+            del work
+            r2 = results["fused_v3"] = dict(
+                max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms,
+                **_k2_bound_sliced(pre_k2, objs_p, meta, env, UHD_PLAIN_SLICE))
+            smem = ck.launch_smem("fused_v3", *objs_p.shape[3:], N)
+            print(f"{tag} K2 (MIXED: envelope {tuple(env)} past the pad "
+                  f"{tuple(objs_p.shape[3:])}) B={B} in {-(-B // chunk)} chunks of {chunk}: "
+                  f"K2 == plain (max abs err {err}); K2 {r2['ms']:.4f} ms ({ms:.4f}, {ms2:.4f}), "
+                  f"plain {plain_ms:.1f} ms (one pass, host clock, slices of {UHD_PLAIN_SLICE}), "
+                  f"{_bound_text(r2)}; launches per chunk: "
+                  f"{launch_text(K2_MIXED_LAUNCHES, smem)} on {smi}")
+        else:
+            print(f"{tag} K2 (MIXED) == plain (max abs err {err}, {plain_ms:.1f} ms plain)")
+        print(f"{tag} reuse chain: {UHD_REUSE_STEPS} reuse steps == a fresh render; launches "
+              f"around them: K3 {launches['restore_windows']}, K2 {launches['fused_v3']} calls "
+              f"in {launches['fused_v3_chunks']} chunks, luma {launches['packed_luma']}")
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+        step.release()
+        del plane, pre_k2, meta, origins, cap, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results, counts
 
 
 def _pil_canvas(bundle, hw, rgba, boxes):
@@ -2237,7 +2445,7 @@ SHARE_LIMIT = 1.05
 LIVE_SHORTFALL = 0.10
 
 
-def row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15, luma):
+def row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15, luma, gradient):
     """(kernel-table row, kernel, geometry, result) of every row's timed
     geometry in the phases above, each result with ``ms`` and its bound."""
     rows = [("12", "K1", f"row12_{g}", kernel[g]) for g in kernel]
@@ -2248,6 +2456,9 @@ def row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15, luma
     rows += [(r[3:], "K4", "1080p_b64", v) for r, v in {**hybrid, **ops_rows}.items()]
     rows += [("15", "K4 stage", v, r) for v, r in row15["variants"].items()]
     rows.append(("16", "luma", f"score1080_b{ROOFLINE_B}", luma))
+    rows += [("13", "K2", "uhd_gradient_b256", gradient["fused_v3"]),
+             ("17", "K3 ramp", "uhd_horizontal_b256", gradient["restore_horizontal"]),
+             ("17", "K3 ramp", "uhd_vertical_b256", gradient["restore_vertical"])]
     return rows
 
 
@@ -2405,6 +2616,7 @@ def main_smoke() -> int:
     launches = phase_main_path()
     batched, batched_launches, _ = phase_batched(smi)
     luma = phase_luma(smi)
+    gradient, gradient_launches = phase_gradient(smi)
     hybrid, hybrid_launches, ref = phase_hybrid(smi)
     ops_rows, row1, row15 = phase_ops(smi, ref)
     del ref
@@ -2415,7 +2627,7 @@ def main_smoke() -> int:
     ui_launches = phase_ui(smi)
     install_launches = phase_install(smi)
     phase_roofline(smi, row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15,
-                                   luma))
+                                   luma, gradient))
     cli, serve = kernel["cli_9x16_b1"], kernel["serve_1080p_b64"]
     packed = {**hybrid, **{k: v for k, v in ops_rows.items() if k != "row2"}}
     print(f"[kernels] {LIBRARY_NOTE}")
@@ -2430,13 +2642,23 @@ def main_smoke() -> int:
                            **{f"row1_{k}": v for k, v in row1.items()}}),
         _entry("fused_v3", V3_SOURCE, V3_REPLACES,
                batched_launches["fused_v3"] + variants_launches + serving_launches["fused_v3"]
-               + mesh_launches["fused_v3"],
+               + mesh_launches["fused_v3"] + gradient_launches["fused_v3"],
                batched["fused_v3"],
-               max_abs_err=max(batched["fused_v3"]["max_abs_err"], variants_k2["max_abs_err"]),
+               max_abs_err=max(batched["fused_v3"]["max_abs_err"], variants_k2["max_abs_err"],
+                               gradient["fused_v3"]["max_abs_err"]),
+               chunks_uhd_gradient=gradient_launches["fused_v3_chunks"],
                geometries={"sweep_1080p_b64": batched["fused_v3"],
-                           f"variants_1080p_v{WIDE_V}": variants_k2}),
+                           f"variants_1080p_v{WIDE_V}": variants_k2,
+                           "uhd_gradient_b256": gradient["fused_v3"]}),
         _entry("restore_windows", RESTORE_SOURCE, RESTORE_REPLACES,
-               batched_launches["restore_windows"], batched["restore_windows"]),
+               batched_launches["restore_windows"] + gradient_launches["restore_windows"],
+               batched["restore_windows"],
+               max_abs_err=max(r["max_abs_err"] for r in (batched["restore_windows"],
+                                                          gradient["restore_horizontal"],
+                                                          gradient["restore_vertical"])),
+               geometries={"sweep_1080p_b64": batched["restore_windows"],
+                           "row17_uhd_horizontal_b256": gradient["restore_horizontal"],
+                           "row17_uhd_vertical_b256": gradient["restore_vertical"]}),
         # the default clamped form (row 6); every row's numbers follow
         _entry("window_blend", BLEND_SOURCE, BLEND_REPLACES,
                hybrid_launches + sum(ops_rows[k]["launches"] for k in packed if k in ops_rows),

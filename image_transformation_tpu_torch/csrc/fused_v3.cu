@@ -35,7 +35,16 @@
 // - the f32 table arithmetic uses __fmul_rn / __fadd_rn / __fdiv_rn, which
 //   nvcc never contracts into FMAs, and each row's weight sum adds the taps
 //   in index order, so the tables equal the plain version's
-//   (build_coeffs_traced) bit for bit;
+//   (ops/resize.py:build_coeffs_v3) bit for bit;
+// - where an axis grows (out > in), the f32 centre (o + 0.5) * scale is off
+//   by ~3e-5 px at 5.85x, which moves coefficients by up to ~90 units of
+//   2^22 from Pillow's and pixels by 3: in a launch whose output envelope
+//   exceeds the objects' padded extent (mh > ph or mw > pw: the upscaling
+//   renders) each growing axis's tap argument is ((2i + 1) out - (2o + 1)
+//   in) * (1 / (2 out)), an exact integer times a rounded reciprocal, and
+//   its window is computed in integers (within 2 units of Pillow's tables).
+//   The other launches run the f32 form alone: compiled beside the mixed
+//   one in a kernel, it ran 4% slower (1080p B=256, 0.963 -> 1.003 ms);
 // - blend (csrc/box_blend.cuh): over each placement's box only, z-order by
 //   the last covering placement (Hopper runs blocks in no order and the
 //   windows of one canvas overlap), the canvas's boxes staged in shared
@@ -107,15 +116,27 @@ __device__ __forceinline__ float lanczos3(float x) {
   return fabsf(x) < 3.0f ? acc : 0.0f;
 }
 
+// One axis of a placement: support 3 fs and inv_fs 1 / fs (fs = max(scale,
+// 1)). In the mixed form (MIXED, the tiles of placements with a growing
+// axis) a growing axis (scale < 1: out > in) holds out in `support` and
+// 1 / (2 out) in `inv_fs`, the exact-argument form's constants.
 struct Axis {
   float in_f, scale, support, inv_fs;
 };
 
+__device__ __forceinline__ bool grows(const Axis& a) { return a.scale < 1.0f; }
+
+template <bool MIXED>
 __device__ __forceinline__ Axis axis_params(int in_size, int out_size) {
   Axis a;
   a.in_f = (float)in_size;
   const float out_f = fmaxf((float)out_size, 1.0f);
   a.scale = __fdiv_rn(a.in_f, out_f);
+  if (MIXED && grows(a)) {
+    a.support = out_f;
+    a.inv_fs = __fdiv_rn(1.0f, __fmul_rn(2.0f, out_f));
+    return a;
+  }
   const float fs = fmaxf(a.scale, 1.0f);
   a.support = __fmul_rn(3.0f, fs);
   a.inv_fs = __fdiv_rn(1.0f, fs);
@@ -123,19 +144,40 @@ __device__ __forceinline__ Axis axis_params(int in_size, int out_size) {
 }
 
 // One output position's window and weight sum. Rows at or past the output
-// size are all zero (lo == hi).
+// size are all zero (lo == hi). On a growing axis `center` holds the bits
+// of the integer (2o + 1) in, twice the output size times the centre.
 struct Row {
   float center, wsum;
   int lo, hi;
 };
 
+// Tap i's weight, in the growing axis's exact-argument form (GROW) or the
+// f32 form.
+template <bool GROW>
 __device__ __forceinline__ float tap_weight(const Axis& a, float center, int i) {
+  if (GROW) {
+    const int num = (2 * i + 1) * (int)a.support - __float_as_int(center);
+    return lanczos3(__fmul_rn((float)num, a.inv_fs));
+  }
   return lanczos3(
       __fmul_rn(__fadd_rn(__fsub_rn((float)i, center), 0.5f), a.inv_fs));
 }
 
+template <bool MIXED>
 __device__ Row row_params(const Axis& a, int o, int out_size) {
   Row r;
+  if (MIXED && grows(a)) {
+    const int in = (int)a.in_f, out = (int)a.support;
+    const int c2 = (2 * o + 1) * in;
+    const int lo_num = c2 - 5 * out;  // (centre - 3 + 0.5) * 2 out
+    r.center = __int_as_float(c2);
+    r.lo = min(lo_num > 0 ? lo_num / (2 * out) : 0, in);
+    r.hi = o < max(out_size, 1) ? min((c2 + 7 * out) / (2 * out), in) : r.lo;
+    float s = 0.0f;
+    for (int i = r.lo; i < r.hi; ++i) s = __fadd_rn(s, tap_weight<true>(a, r.center, i));
+    r.wsum = s != 0.0f ? s : 1.0f;
+    return r;
+  }
   r.center = __fmul_rn(__fadd_rn((float)o, 0.5f), a.scale);
   const float lo = fminf(
       fmaxf(truncf(__fadd_rn(__fsub_rn(r.center, a.support), 0.5f)), 0.0f),
@@ -146,33 +188,38 @@ __device__ Row row_params(const Axis& a, int o, int out_size) {
   r.lo = (int)lo;
   r.hi = o < max(out_size, 1) ? (int)hi : r.lo;  // the (o < out_f) row mask
   float s = 0.0f;
-  for (int i = r.lo; i < r.hi; ++i) s = __fadd_rn(s, tap_weight(a, r.center, i));
+  for (int i = r.lo; i < r.hi; ++i) s = __fadd_rn(s, tap_weight<false>(a, r.center, i));
   r.wsum = s != 0.0f ? s : 1.0f;
   return r;
 }
 
 // quantized coefficient of tap i inside a row's window
+template <bool GROW>
 __device__ __forceinline__ int coeff(const Axis& a, float center, float wsum, int i) {
-  const float w = __fdiv_rn(tap_weight(a, center, i), wsum);
+  const float w = __fdiv_rn(tap_weight<GROW>(a, center, i), wsum);
   const float scaled = __fmul_rn(w, 4194304.0f);  // 2^22
   return (int)truncf(__fadd_rn(scaled, w < 0.0f ? -0.5f : 0.5f));
 }
 
 // K2's tables for one tile: each tile column's and row's window and weight
 // sum (centre and sum in shared memory, `center`/`wsum` [TX + TY], columns
-// first), with the plain version's f32 op order (row_params, coeff). As
-// `Taps` of the core it computes each coefficient where it is used: the
-// tiles whose taps do not fit the compact arrays take that path.
+// first), with the plain version's f32 op order (row_params, coeff); with
+// MIXED each growing axis takes the exact-argument form. As `Taps` of the
+// core it computes each coefficient where it is used: the tiles whose taps
+// do not fit the compact arrays take that path.
+template <bool MIXED>
 struct V3Taps {
   Axis axh, axv;
   float* center;
   float* wsum;
 
   __device__ __forceinline__ int h(int c, int j) const {
-    return coeff(axh, center[c], wsum[c], j);
+    return MIXED && grows(axh) ? coeff<true>(axh, center[c], wsum[c], j)
+                               : coeff<false>(axh, center[c], wsum[c], j);
   }
   __device__ __forceinline__ int v(int r, int i) const {
-    return coeff(axv, center[resample::TX + r], wsum[resample::TX + r], i);
+    const float ce = center[resample::TX + r], ws = wsum[resample::TX + r];
+    return MIXED && grows(axv) ? coeff<true>(axv, ce, ws, i) : coeff<false>(axv, ce, ws, i);
   }
 
   // The tile's windows into `w`, then, when they fit (cap_h and cap_v
@@ -183,8 +230,8 @@ struct V3Taps {
                           int* coef_h, int* coef_v, int cap_h, int cap_v) const {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     if (warp < 2) {  // warp 0: the tile's columns, warp 1: its rows
-      const Row r = warp == 0 ? row_params(axh, ox0 + lane, out_w)
-                              : row_params(axv, oy0 + lane, out_h);
+      const Row r = warp == 0 ? row_params<MIXED>(axh, ox0 + lane, out_w)
+                              : row_params<MIXED>(axv, oy0 + lane, out_h);
       center[warp * resample::TX + lane] = r.center;
       wsum[warp * resample::TX + lane] = r.wsum;
       resample::set_window(w, warp, lane, r.lo, r.hi);
@@ -198,14 +245,43 @@ struct V3Taps {
       const int lo = horiz ? w.hlo[c] : w.vlo[c], hi = horiz ? w.hhi[c] : w.vhi[c];
       int* dst = horiz ? coef_h + w.hoff[c] : coef_v + w.voff[c];
       const Axis ax = horiz ? axh : axv;
-      for (int i = lo + lane; i < hi; i += 32) dst[i - lo] = coeff(ax, center[e], wsum[e], i);
+      if (MIXED && grows(ax)) {
+        for (int i = lo + lane; i < hi; i += 32)
+          dst[i - lo] = coeff<true>(ax, center[e], wsum[e], i);
+      } else {
+        for (int i = lo + lane; i < hi; i += 32)
+          dst[i - lo] = coeff<false>(ax, center[e], wsum[e], i);
+      }
     }
     return true;
   }
 };
 
+// The tables and the resample of one tile of a placement that is neither
+// dropped nor a plain copy; `win`, `center` and `wsum` in shared memory.
+template <bool MIXED>
+__device__ __forceinline__ void resample_placement_tile(
+    const resample::PlanarSrc& src, uchar4* out, const Meta& m, int ox0, int oy0, int mw,
+    int cap_h, int cap_v, resample::TileWindows& win, float* center, float* wsum) {
+  extern __shared__ uint32_t smem[];
+  int* coef = reinterpret_cast<int*>(smem + resample::TILE_SMEM_BYTES / 4);
+  const V3Taps<MIXED> taps{axis_params<MIXED>(m.in_w, m.out_w),
+                           axis_params<MIXED>(m.in_h, m.out_h), center, wsum};
+  const bool staged =
+      taps.prepare(win, ox0, oy0, m.out_w, m.out_h, coef, coef + cap_h, cap_h, cap_v);
+  __syncthreads();
+  if (staged) {
+    resample::resample_tile(src, resample::SharedTaps{coef, coef + cap_h, &win}, win, smem, out,
+                            mw, m.out_h, m.out_w, ox0, oy0);
+  } else {
+    resample::resample_tile(src, taps, win, smem, out, mw, m.out_h, m.out_w, ox0, oy0);
+  }
+}
+
 // (1) grid (B*N, ceil(mw/TX), ceil(mh/TY)): one tile of one placement,
-// resampled into res (or the object's own pixels where `same` is set).
+// resampled into res (or the object's own pixels where `same` is set); with
+// MIXED the growing axes' tables take the exact-argument form.
+template <bool MIXED>
 __global__ void __launch_bounds__(resample::THREADS, 3)
 v3_resample(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
             uchar4* __restrict__ res, int Bo, int N, int ph, int pw, int mh, int mw,
@@ -225,18 +301,7 @@ v3_resample(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
   }
   __shared__ resample::TileWindows win;
   __shared__ float center[resample::TX + resample::TY], wsum[resample::TX + resample::TY];
-  extern __shared__ uint32_t smem[];
-  int* coef = reinterpret_cast<int*>(smem + resample::TILE_SMEM_BYTES / 4);
-  const V3Taps taps{axis_params(m.in_w, m.out_w), axis_params(m.in_h, m.out_h), center, wsum};
-  const bool staged =
-      taps.prepare(win, ox0, oy0, m.out_w, m.out_h, coef, coef + cap_h, cap_h, cap_v);
-  __syncthreads();
-  if (staged) {
-    resample::resample_tile(src, resample::SharedTaps{coef, coef + cap_h, &win}, win, smem, out,
-                            mw, m.out_h, m.out_w, ox0, oy0);
-  } else {
-    resample::resample_tile(src, taps, win, smem, out, mw, m.out_h, m.out_w, ox0, oy0);
-  }
+  resample_placement_tile<MIXED>(src, out, m, ox0, oy0, mw, cap_h, cap_v, win, center, wsum);
 }
 
 // K2's placement rectangles, from the meta: the box at its origin, 0 when
@@ -265,12 +330,17 @@ extern "C" int fused_v3_launch(void* plane, const void* objects, const void* met
   // tile computes its taps where it uses them)
   int cap_h, cap_v;
   const int smem = resample::tap_caps(ph, pw, &cap_h, &cap_v);
-  cudaError_t err = resample::allow_smem(v3_resample, smem);
+  // an envelope past the objects' padded extent: the launch's growing axes
+  // take the exact-argument form (ops/resize.py:build_coeffs_v3)
+  const bool mixed = mh > ph || mw > pw;
+  const auto kernel = mixed ? v3_resample<true> : v3_resample<false>;
+  cudaError_t err = mixed ? resample::allow_smem<1>(kernel, smem)
+                          : resample::allow_smem<0>(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int vec = ((size_t)ph * pw) % 4 == 0 && reinterpret_cast<uintptr_t>(objects) % 4 == 0;
   const dim3 grid_r(bn, (mw + resample::TX - 1) / resample::TX,
                     (mh + resample::TY - 1) / resample::TY);
-  v3_resample<<<grid_r, resample::THREADS, smem, s>>>(
+  kernel<<<grid_r, resample::THREADS, smem, s>>>(
       static_cast<const uint8_t*>(objects), static_cast<const int*>(meta),
       static_cast<uchar4*>(res), Bo, N, ph, pw, mh, mw, cap_h, cap_v, vec);
   err = cudaGetLastError();

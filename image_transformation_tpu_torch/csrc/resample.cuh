@@ -376,11 +376,12 @@ struct PlanarSrc {
 // Opt a kernel into `bytes` of dynamic shared memory on the current device,
 // once per kernel, device and size (a block's static and dynamic shared
 // memory together above 48 KB need it); returns the CUDA error (0 on
-// success).
-template <class Kernel>
+// success). Kernels of one signature (the instances of a template) pass
+// distinct TAGs.
+template <int TAG = 0, class Kernel>
 inline cudaError_t allow_smem(Kernel kernel, int bytes) {
   constexpr int MAX_DEVICES = 64;
-  static int allowed[MAX_DEVICES] = {};  // one array per kernel signature
+  static int allowed[MAX_DEVICES] = {};  // one array per kernel signature and TAG
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;

@@ -1,4 +1,5 @@
-// K3: solid fill of the previous render's windows on a reused plane.
+// K3: fill of the previous render's windows on a reused plane, with the
+// solid background colour or with the gradient background's ramp.
 //
 // Replaces the TPU kernels image_transformation_tpu/ops/compose_pallas.py:
 // _make_restore_kernel (batch-max windows) and _make_restore_kernel_static
@@ -17,15 +18,23 @@
 //   last window's bottom shared out among the bands;
 // - a warp takes a row at a time, and its lanes take 16-byte groups of the
 //   row, aligned to the group's address: a group wholly inside the union
-//   of the windows that cross the row is one int4 store of bg, the groups
-//   at a window's ragged ends (and windows narrower than 4 px) store their
+//   of the windows that cross the row is one int4 store, the groups at a
+//   window's ragged ends (and windows narrower than 4 px) store their
 //   covered pixels one by one. Overlaps and gaps cost coverage tests, not
 //   stores: no pixel is written twice.
+// - the fill is a template parameter, so the solid form is the code it was
+//   before the gradient forms came: SOLID stores bg; COL_RAMP (a vertical
+//   gradient) stores ramp[y] on row y, loaded once a row; ROW_RAMP (a
+//   horizontal gradient) stores ramp[c] at column c, read through the L1
+//   (one packed row of the plane's width, 9 KB at 2304 columns), so its
+//   stores stay the same 16-byte stores.
 //
 // Interface (all contiguous, on one device; see ops/compose_kernels.py):
 //   plane   i32 [B, hp, wp]   packed RGBA, updated in place (4-byte aligned)
 //   origins i32 [B, N, 2]     (x, y) of each window's top-left corner
 //   extents i32 [N, 2]        (h, w) of object k's window
+//   ramp    i32 [wp] or [hp]  packed RGBA of each column (ROW_RAMP) or row
+//                             (COL_RAMP) of the gradient plane
 
 #include <climits>
 #include <cstdint>
@@ -37,11 +46,15 @@ constexpr int THREADS = 256;      // 8 warps, one row each at a time
 constexpr int BAND_ROWS = 8;      // bands per canvas: ceil(max_wh / BAND_ROWS)
 constexpr int MAX_SMEM = 232448;  // shared memory a block can use (227 KB)
 
+enum Fill { SOLID = 0, ROW_RAMP = 1, COL_RAMP = 2 };
+
 inline int smem_bytes(int n) { return (int)sizeof(int4) * n; }
 
+template <int FILL>
 __global__ void __launch_bounds__(THREADS)
 restore_kernel(int* __restrict__ plane, const int* __restrict__ origins,
-               const int* __restrict__ extents, int N, int hp, int wp, int bg) {
+               const int* __restrict__ extents, const int* __restrict__ ramp, int N, int hp,
+               int wp, int bg) {
   extern __shared__ int4 s_win[];  // (x0, y0, x1, y1) on the plane; (0, 0, 0, 0) when empty
   __shared__ int s_span[2];
   const int b = blockIdx.x;
@@ -81,6 +94,12 @@ restore_kernel(int* __restrict__ plane, const int* __restrict__ origins,
       }
     }
     if (xb <= xa) continue;
+    int v = bg;
+    int4 v4 = bg4;
+    if (FILL == COL_RAMP) {
+      v = __ldg(ramp + y);
+      v4 = make_int4(v, v, v, v);
+    }
     int* row = plane + ((size_t)b * hp + y) * wp;
     // column -a starts a 16-byte group: groups are aligned to their address
     const int a = (int)((reinterpret_cast<uintptr_t>(row) >> 2) & 3);
@@ -93,15 +112,39 @@ restore_kernel(int* __restrict__ plane, const int* __restrict__ origins,
         if (hi > lo) m |= (0xfu >> (4 - hi)) & (0xfu << lo);
       }
       if (m == 0xfu) {
-        *reinterpret_cast<int4*>(row + c) = bg4;
+        if (FILL == ROW_RAMP) {  // c >= 0 here: the group lies inside a window
+          const int* src = ramp + c;
+          v4 = (reinterpret_cast<uintptr_t>(src) & 15) == 0
+                   ? __ldg(reinterpret_cast<const int4*>(src))
+                   : make_int4(__ldg(src), __ldg(src + 1), __ldg(src + 2), __ldg(src + 3));
+        }
+        *reinterpret_cast<int4*>(row + c) = v4;
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if (m >> j & 1u) row[c + j] = bg;
+          if (m >> j & 1u) row[c + j] = FILL == ROW_RAMP ? __ldg(ramp + c + j) : v;
         }
       }
     }
   }
+}
+
+template <int FILL>
+int launch(void* plane, const void* origins, const void* extents, const void* ramp, int B, int N,
+           int hp, int wp, int max_wh, int bg, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int smem = smem_bytes(N);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        restore_kernel<FILL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int bands = max_wh > BAND_ROWS ? (max_wh + BAND_ROWS - 1) / BAND_ROWS : 1;
+  restore_kernel<FILL><<<dim3((unsigned)B, (unsigned)bands), THREADS, smem, s>>>(
+      static_cast<int*>(plane), static_cast<const int*>(origins),
+      static_cast<const int*>(extents), static_cast<const int*>(ramp), N, hp, wp, bg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -114,17 +157,16 @@ extern "C" int restore_windows_launch(void* plane, const void* origins,
                                       const void* extents, int B, int N,
                                       int hp, int wp, int max_wh, int bg,
                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = smem_bytes(N);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        restore_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int bands = max_wh > BAND_ROWS ? (max_wh + BAND_ROWS - 1) / BAND_ROWS : 1;
-  restore_kernel<<<dim3((unsigned)B, (unsigned)bands), THREADS, smem, s>>>(
-      static_cast<int*>(plane), static_cast<const int*>(origins),
-      static_cast<const int*>(extents), N, hp, wp, bg);
-  return (int)cudaGetLastError();
+  return launch<SOLID>(plane, origins, extents, nullptr, B, N, hp, wp, max_wh, bg, stream);
+}
+
+// the gradient form: ramp holds wp packed columns (horizontal) or hp rows
+extern "C" int restore_windows_ramp_launch(void* plane, const void* origins,
+                                           const void* extents, const void* ramp, int B,
+                                           int N, int hp, int wp, int max_wh, int horizontal,
+                                           void* stream) {
+  return horizontal ? launch<ROW_RAMP>(plane, origins, extents, ramp, B, N, hp, wp, max_wh, 0,
+                                       stream)
+                    : launch<COL_RAMP>(plane, origins, extents, ramp, B, N, hp, wp, max_wh, 0,
+                                       stream);
 }

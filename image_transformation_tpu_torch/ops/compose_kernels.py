@@ -15,17 +15,21 @@ host-built Pillow tables, then alpha-over, on u8 RGBA canvases.
 
 K2, the gen-3 contract (``csrc/fused_v3.cu``): tables built on the device
 from four sizes per object (meta columns 6-9), resample, alpha-over into
-the padded packed int32 plane. K3 (``csrc/restore_windows.cu``): solid fill
-of the previous render's windows.
+the padded packed int32 plane. K3 (``csrc/restore_windows.cu``): fill of
+the previous render's windows with the background, a solid colour or a
+:class:`GradientRamp`.
 
 - geometry and packing: :func:`window_extents`, :func:`fused_canvas_pad_hw`,
   :func:`planarize_objects`, :func:`pack_rgba_scalar`, the meta functions;
 - :func:`fused_v3` / :func:`fused_v3_reference`,
   :func:`restore_windows` / :func:`restore_windows_reference`;
 - the programs: :func:`composite_batch_fused_v3`,
+  :func:`render_fused_v3_program` and :func:`render_fused_v3_reuse_program`
+  (either background), and their named forms
   :func:`render_solid_fused_v3_program`,
   :func:`render_solid_fused_v3_reuse_program`,
-  :func:`render_gradient_fused_v3_program`.
+  :func:`render_gradient_fused_v3_program` (per-canvas colours) and
+  :func:`render_gradient_fused_v3_reuse_program`.
 
 K4, the two-program hybrid (``csrc/window_blend.cu``; JAX :1029-1207,
 :1210-2084, :2144-2453): a plain-torch producer resizes every object into
@@ -63,7 +67,7 @@ import contextlib
 import ctypes
 import functools
 import threading
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -74,6 +78,7 @@ from .compose import _blend_window, alpha_over_u8
 from .resize import (
     build_coeffs_host,
     build_coeffs_traced,
+    build_coeffs_v3,
     premultiply_rgba,
     resample_fixed,
     resize_f32_shifted,
@@ -85,9 +90,11 @@ from .resize import (
 FLAG_LIVE = 1
 FLAG_IDENTITY = 2
 
-#: launches since the last reset (one per launching wrapper call on CUDA)
-LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "restore_windows": 0, "window_blend": 0,
-            "window_blend_planar": 0, "window_blend_stage": 0, "packed_luma": 0}
+#: launches since the last reset (one per launching wrapper call on CUDA;
+#: "fused_v3_chunks" counts each chunk a K2 call launches over)
+LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "fused_v3_chunks": 0, "restore_windows": 0,
+            "window_blend": 0, "window_blend_planar": 0, "window_blend_stage": 0,
+            "packed_luma": 0}
 
 _MAX_GRID_X = (1 << 31) - 1  # CUDA's limit on gridDim.x, which carries B*N
 _MAX_GRID_Z = 65535  # CUDA's limit on gridDim.y and gridDim.z
@@ -217,6 +224,7 @@ _ARGTYPES = {
     "fused_compose_bounds_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "fused_v3_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     "restore_windows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "restore_windows_ramp_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "restore_windows_smem": [ctypes.c_int],
     "window_blend_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "window_blend_planar_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
@@ -454,6 +462,54 @@ def pack_rgba_scalar(bg_rgba: Tuple[int, int, int, int]) -> int:
     return packed - (1 << 32) if packed >= 1 << 31 else packed
 
 
+class GradientRamp(NamedTuple):
+    """The gradient background of a padded plane as one packed line:
+    ``values`` int32 [wp] (``horizontal``: column x of every row takes
+    ``values[x]``) or [hp] (row y takes ``values[y]``)."""
+
+    values: torch.Tensor
+    horizontal: bool
+
+
+#: a render's background: a packed solid colour or a gradient ramp
+Background = Union[int, GradientRamp]
+
+
+def _packed_ramp(c1, c2, n: int, limit: int, device) -> torch.Tensor:
+    """The packed c1 -> c2 ramp of ``n`` steps over ``limit`` pixels, int32
+    [..., n] for colours u8 [..., 3]: float64 weights on the host, float32
+    lerp, truncating u8 cast, as the reference's fill_gradient, clamped at
+    t = 1 past ``limit`` (the plane's pad)."""
+    t64 = np.clip(np.arange(n) / max(1, limit - 1), 0.0, 1.0)
+    t = torch.from_numpy(t64.astype(np.float32)).to(device)
+    w1 = torch.from_numpy((1.0 - t64).astype(np.float32)).to(device)
+    c1 = torch.as_tensor(c1, device=device).to(torch.float32)
+    c2 = torch.as_tensor(c2, device=device).to(torch.float32)
+    ramp = w1[:, None] * c1[..., None, :] + t[:, None] * c2[..., None, :]
+    rgb = ramp.to(torch.uint8).to(torch.int32)  # truncation, as the reference
+    return rgb[..., 0] | (rgb[..., 1] << 8) | (rgb[..., 2] << 16) | pack_rgba_scalar((0, 0, 0, 255))
+
+
+def gradient_ramp(c1, c2, horizontal: bool, canvas_hw: Tuple[int, int],
+                  pad_hw: Tuple[int, int], device) -> GradientRamp:
+    """The :class:`GradientRamp` of the c1 -> c2 gradient (u8 RGB triples,
+    as ``ops.background.gradient_spec`` gives them) on a canvas padded to
+    ``pad_hw``: one packed line along the gradient's axis, the canvas's
+    pixels equal to the reference's fill_gradient and the pad at c2."""
+    (H, W), (hp, wp) = canvas_hw, pad_hw
+    n, limit = (wp, W) if horizontal else (hp, H)
+    return GradientRamp(_packed_ramp(c1, c2, n, limit, device).contiguous(), bool(horizontal))
+
+
+def _background_plane(bg: Background, B: int, hp: int, wp: int, device) -> torch.Tensor:
+    """A fresh padded plane [B, hp, wp] of the background ``bg``."""
+    if isinstance(bg, GradientRamp):
+        line = bg.values.to(device)
+        line = line[None, None, :] if bg.horizontal else line[None, :, None]
+        return line.expand(B, hp, wp).contiguous()
+    return torch.full((B, hp, wp), bg, dtype=torch.int32, device=device)
+
+
 def packed_to_u8_np(packed_np) -> np.ndarray:
     """Host view of a packed plane as uint8 RGBA [..., H, W, 4] (no copy
     when the array is contiguous)."""
@@ -665,8 +721,11 @@ def _check_v3_args(plane, objs_p, meta, out_max_hw) -> None:
 
 def fused_v3_reference(plane: torch.Tensor, objs_p: torch.Tensor,
                        meta: torch.Tensor, out_max_hw: Tuple[int, int]) -> torch.Tensor:
-    """Plain PyTorch version of K2. Builds every table with the f32 table code
-    (ops.resize.build_coeffs_traced), resamples each live placement with the
+    """Plain PyTorch version of K2. Builds every table as K2 does: with the
+    f32 table code (ops.resize.build_coeffs_traced), or, where the envelope
+    ``out_max_hw`` exceeds the objects' padded extent (a render that may
+    upscale past the assets), with exact tap arguments on growing axes
+    (ops.resize.build_coeffs_v3); resamples each live placement with the
     exact float64 resample, and alpha-overs it in object order; updates
     ``plane`` in place and returns it."""
     _check_v3_args(plane, objs_p, meta, out_max_hw)
@@ -676,8 +735,9 @@ def fused_v3_reference(plane: torch.Tensor, objs_p: torch.Tensor,
     m = meta.to(torch.int64)
     in_h, in_w = m[..., 6].clamp(0, ph), m[..., 7].clamp(0, pw)
     out_h, out_w = m[..., 8].clamp(0, mh), m[..., 9].clamp(0, mw)
-    kh = build_coeffs_traced(in_w, out_w, pw, mw)  # [B, N, mw, pw]
-    kv = build_coeffs_traced(in_h, out_h, ph, mh)  # [B, N, mh, ph]
+    tables = build_coeffs_v3 if mh > ph or mw > pw else build_coeffs_traced
+    kh = tables(in_w, out_w, pw, mw)  # [B, N, mw, pw]
+    kv = tables(in_h, out_h, ph, mh)  # [B, N, mh, ph]
     sizes = torch.stack([in_h, in_w, out_h, out_w], -1).tolist()
     meta_h = m.tolist()
     canvas_u8 = packed_to_u8(plane)  # a view: blends write the plane
@@ -715,6 +775,13 @@ def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
     stream, over chunks of canvases that keep its scratch under
     ``_V3_SCRATCH_BYTES``, and raises if a launch fails; on the CPU it runs
     :func:`fused_v3_reference`.
+
+    Upscale accuracy depends on the envelope, not on the box: where
+    ``out_max_hw`` exceeds the objects' padded extent (mh > ph or mw > pw)
+    a growing axis's tables take exact tap arguments (within 2 units of
+    2^22 of Pillow's); otherwise every table takes the f32 centre, which at
+    large upscales within the pad moves pixels by up to 3. So one upscaled
+    box may render with other bytes under another caller's envelope.
     """
     if plane.device.type == "cpu":
         return fused_v3_reference(plane, objs_p, meta, out_max_hw)
@@ -741,6 +808,7 @@ def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
             )
             if rc != 0:
                 raise RuntimeError(f"fused_v3: kernel launch failed with CUDA error {rc}")
+            LAUNCHES["fused_v3_chunks"] += 1
     LAUNCHES["fused_v3"] += 1
     return plane
 
@@ -781,34 +849,57 @@ def _restore_table(extents, device: torch.device) -> Tuple[torch.Tensor, int]:
     return table, max((h for h, _ in pairs), default=0)
 
 
+def _check_ramp(plane: torch.Tensor, ramp: GradientRamp) -> None:
+    v = ramp.values
+    n = plane.shape[2] if ramp.horizontal else plane.shape[1]
+    if not torch.is_tensor(v) or v.dtype != torch.int32 or v.device != plane.device:
+        raise TypeError(f"the ramp must be an int32 tensor on {plane.device}")
+    if tuple(v.shape) != (n,) or not v.is_contiguous():
+        raise ValueError(f"the ramp must be contiguous [{n}], got {tuple(v.shape)}")
+
+
 def restore_windows_reference(plane: torch.Tensor, origins: torch.Tensor,
                               extents: Sequence[Tuple[int, int]],
-                              bg_packed: int) -> torch.Tensor:
+                              bg: Background) -> torch.Tensor:
     """Plain PyTorch version of K3: fill each window (origin (x, y) of
-    placement (b, k), extent (h, w) of object k) with ``bg_packed``, cut at
-    the plane's edge. Updates ``plane`` in place and returns it."""
+    placement (b, k), extent (h, w) of object k) with the background ``bg``
+    (a packed colour, or the ramp's values at the window's columns or
+    rows), cut at the plane's edge. Updates ``plane`` in place and returns
+    it."""
     _check_restore_args(plane, origins, len(extents))
     extents = _restore_pairs(extents)
+    ramp = isinstance(bg, GradientRamp)
+    if ramp:
+        _check_ramp(plane, bg)
     for b, row in enumerate(origins.tolist()):
         for k, (x, y) in enumerate(row):
             h, w = extents[k]
-            plane[b, max(y, 0):max(y + h, 0), max(x, 0):max(x + w, 0)] = bg_packed
+            ys = slice(max(y, 0), max(y + h, 0))
+            xs = slice(max(x, 0), max(x + w, 0))
+            if not ramp:
+                plane[b, ys, xs] = bg
+            elif bg.horizontal:
+                plane[b, ys, xs] = bg.values[xs][None, :]
+            else:
+                plane[b, ys, xs] = bg.values[ys][:, None]
     return plane
 
 
 def restore_windows(plane: torch.Tensor, origins: torch.Tensor,
-                    extents: Sequence[Tuple[int, int]], bg_packed: int) -> torch.Tensor:
-    """Fill every window of the previous render with the solid background.
-    Updates ``plane`` IN PLACE and returns it.
+                    extents: Sequence[Tuple[int, int]], bg: Background) -> torch.Tensor:
+    """Fill every window of the previous render with the background: a
+    packed solid colour, or a :class:`GradientRamp` of the plane. Updates
+    ``plane`` IN PLACE and returns it.
 
     plane i32 [B, hp, wp]; origins i32 [B, N, 2] (x, y); extents: N host
     (h, w) pairs, the window extent of object k (a tuple of pairs, as the
     render programs pass, is uploaded once and then found in a cache). On a
-    CUDA device this launches K3 (``csrc/restore_windows.cu``) and raises if
-    the launch fails; on the CPU it runs :func:`restore_windows_reference`.
+    CUDA device this launches K3 (``csrc/restore_windows.cu``; its solid or
+    its ramp form) and raises if the launch fails; on the CPU it runs
+    :func:`restore_windows_reference`.
     """
     if plane.device.type == "cpu":
-        return restore_windows_reference(plane, origins, extents, bg_packed)
+        return restore_windows_reference(plane, origins, extents, bg)
     _check_restore_args(plane, origins, len(extents))
     if plane.device.type != "cuda":
         raise ValueError(f"restore_windows runs on cuda or cpu, not {plane.device}")
@@ -821,10 +912,16 @@ def restore_windows(plane: torch.Tensor, origins: torch.Tensor,
         ext_d, max_wh = _restore_table(extents, dev)
     except TypeError:  # an unhashable sequence (a list): its tuple
         ext_d, max_wh = _restore_table(_restore_pairs(extents), dev)
-    fn = _kernel_entry("restore_windows_launch")
     with _device_guard(dev):
-        rc = fn(plane.data_ptr(), origins.data_ptr(), ext_d.data_ptr(),
-                B, N, hp, wp, max_wh, int(bg_packed), _stream_handle(dev))
+        if isinstance(bg, GradientRamp):
+            _check_ramp(plane, bg)
+            rc = _kernel_entry("restore_windows_ramp_launch")(
+                plane.data_ptr(), origins.data_ptr(), ext_d.data_ptr(), bg.values.data_ptr(),
+                B, N, hp, wp, max_wh, int(bg.horizontal), _stream_handle(dev))
+        else:
+            rc = _kernel_entry("restore_windows_launch")(
+                plane.data_ptr(), origins.data_ptr(), ext_d.data_ptr(),
+                B, N, hp, wp, max_wh, int(bg), _stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"restore_windows: kernel launch failed with CUDA error {rc} "
                            "(past ~14,500 windows a canvas's do not fit shared memory)")
@@ -904,6 +1001,32 @@ def composite_batch_fused_v3(
     return out if packed_out else packed_to_u8(out)
 
 
+def render_fused_v3_program(
+    objs_p: torch.Tensor,
+    obj_hw,
+    boxes,
+    canvas_hw: Tuple[int, int],
+    bg: Background,
+    out_max_hw: Tuple[int, int] | None = None,
+    pipelined: bool = False,
+    static_obj_hw: Sequence[Tuple[int, int]] | None = None,
+) -> torch.Tensor:
+    """Batch render on one background for every canvas (port of
+    compose_pallas.py:3763): a plane of ``bg`` (a packed solid colour, or a
+    :class:`GradientRamp` of the padded plane) made on the device, then K2.
+    Returns the padded packed plane [B, hp, wp]; crop with
+    ``packed_to_u8(out)[:, :H, :W]``. ``objs_p`` is planar and may be
+    shared ([1, N, ...]); the batch comes from ``boxes``. ``static_obj_hw``
+    (with ``pipelined``) bounds each object's output size: a larger box
+    renders at the size its window clamps it to."""
+    with span("itx.render.meta"):
+        meta, env, (hp, wp) = _render_meta(
+            objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw
+        )
+    plane = _background_plane(bg, meta.shape[0], hp, wp, objs_p.device)
+    return fused_v3(plane, objs_p, meta, env)
+
+
 def render_solid_fused_v3_program(
     objs_p: torch.Tensor,
     obj_hw,
@@ -914,42 +1037,38 @@ def render_solid_fused_v3_program(
     pipelined: bool = False,
     static_obj_hw: Sequence[Tuple[int, int]] | None = None,
 ) -> torch.Tensor:
-    """Solid-background batch render (port of compose_pallas.py:3763): a
-    plane filled with ``bg_packed`` on the device, then K2. Returns the
-    padded packed plane [B, hp, wp]; crop with
-    ``packed_to_u8(out)[:, :H, :W]``. ``objs_p`` is planar and may be
-    shared ([1, N, ...]); the batch comes from ``boxes``."""
-    with span("itx.render.meta"):
-        meta, env, (hp, wp) = _render_meta(
-            objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw
-        )
-    plane = torch.full((meta.shape[0], hp, wp), bg_packed, dtype=torch.int32,
-                       device=objs_p.device)
-    return fused_v3(plane, objs_p, meta, env)
+    """Solid-background batch render: :func:`render_fused_v3_program` on a
+    plane filled with ``bg_packed``."""
+    return render_fused_v3_program(objs_p, obj_hw, boxes, canvas_hw, int(bg_packed),
+                                   out_max_hw, pipelined, static_obj_hw)
 
 
-def render_solid_fused_v3_reuse_program(
+def render_fused_v3_reuse_program(
     prev_v: torch.Tensor,
     prev_boxes,
     objs_p: torch.Tensor,
     obj_hw,
     boxes,
     canvas_hw: Tuple[int, int],
-    bg_packed: int,
+    bg: Background,
     out_max_hw: Tuple[int, int] | None = None,
     static_obj_hw: Sequence[Tuple[int, int]] | None = None,
     pipelined: bool = False,
 ) -> torch.Tensor:
     """Framebuffer-reuse render (port of compose_pallas.py:4011): restore
     the windows the previous render (``prev_boxes``) touched on ``prev_v``
-    with K3, then compose ``boxes`` with K2.
+    with K3, from the background ``bg`` (a packed solid colour or a
+    :class:`GradientRamp`), then compose ``boxes`` with K2.
 
     Where JAX donates ``prev_v``, the port restores and composes IN PLACE
     on the same tensor and returns it. ``prev_v`` must come from a render
-    with the same ``bg_packed``, canvas, envelope and objects. With
+    with the same ``bg``, canvas, envelope and objects. With
     ``static_obj_hw`` and B >= 2 each restore window has its object's own
-    extents (which must bound the previous boxes' output sizes: true for
-    every downscale-only layout); otherwise the batch-max window.
+    extents; otherwise the batch-max window. ``static_obj_hw`` is a per-object
+    bound of the output size, which sizes both K2's window and the restore
+    window: a box larger than its bound renders at the size the window
+    clamps it to (another scale than the box's), so where boxes upscale,
+    pass bounds of the output sizes, not of the assets.
     """
     mh_a, mw_a = _envelope(objs_p, out_max_hw)
     MH, MW = window_extents((mh_a, mw_a))
@@ -973,8 +1092,49 @@ def render_solid_fused_v3_reuse_program(
         meta, env, _ = _render_meta(
             objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw
         )
-    restore_windows(prev_v, origins, extents, bg_packed)
-    return fused_v3(prev_v, objs_p, meta, env)
+    with span("itx.render.restore", dev):
+        restore_windows(prev_v, origins, extents, bg)
+    with span("itx.render.compose", dev):
+        return fused_v3(prev_v, objs_p, meta, env)
+
+
+def render_solid_fused_v3_reuse_program(
+    prev_v: torch.Tensor,
+    prev_boxes,
+    objs_p: torch.Tensor,
+    obj_hw,
+    boxes,
+    canvas_hw: Tuple[int, int],
+    bg_packed: int,
+    out_max_hw: Tuple[int, int] | None = None,
+    static_obj_hw: Sequence[Tuple[int, int]] | None = None,
+    pipelined: bool = False,
+) -> torch.Tensor:
+    """:func:`render_fused_v3_reuse_program` on a solid background
+    ``bg_packed``."""
+    return render_fused_v3_reuse_program(prev_v, prev_boxes, objs_p, obj_hw, boxes, canvas_hw,
+                                         int(bg_packed), out_max_hw, static_obj_hw, pipelined)
+
+
+def render_gradient_fused_v3_reuse_program(
+    prev_v: torch.Tensor,
+    prev_boxes,
+    objs_p: torch.Tensor,
+    obj_hw,
+    boxes,
+    canvas_hw: Tuple[int, int],
+    ramp: GradientRamp,
+    out_max_hw: Tuple[int, int] | None = None,
+    static_obj_hw: Sequence[Tuple[int, int]] | None = None,
+    pipelined: bool = False,
+) -> torch.Tensor:
+    """:func:`render_fused_v3_reuse_program` on a gradient background: K3
+    restores each window from ``ramp`` (:func:`gradient_ramp`, built once
+    for the plane, not per call)."""
+    if not isinstance(ramp, GradientRamp):
+        raise TypeError(f"ramp must be a GradientRamp, got {type(ramp).__name__}")
+    return render_fused_v3_reuse_program(prev_v, prev_boxes, objs_p, obj_hw, boxes, canvas_hw,
+                                         ramp, out_max_hw, static_obj_hw, pipelined)
 
 
 def render_gradient_fused_v3_program(
@@ -997,20 +1157,9 @@ def render_gradient_fused_v3_program(
         objs_p, obj_hw, boxes, canvas_hw, out_max_hw, False, static_obj_hw
     )
     H, W = canvas_hw
-    dev = objs_p.device
     n, limit = (wp, W) if horizontal else (hp, H)
-    t64 = np.clip(np.arange(n) / max(1, limit - 1), 0.0, 1.0)
-    t = torch.from_numpy(t64.astype(np.float32)).to(dev)
-    w1 = torch.from_numpy((1.0 - t64).astype(np.float32)).to(dev)
-    c1 = torch.as_tensor(c1, device=dev).to(torch.float32)
-    c2 = torch.as_tensor(c2, device=dev).to(torch.float32)
-    ramp = w1[None, :, None] * c1[:, None, :] + t[None, :, None] * c2[:, None, :]
-    rgb = ramp.to(torch.uint8).to(torch.int32)  # truncation, as the reference
-    packed = rgb[..., 0] | (rgb[..., 1] << 8) | (rgb[..., 2] << 16) | pack_rgba_scalar(
-        (0, 0, 0, 255)
-    )
-    B = meta.shape[0]
-    shape = (B, hp, wp)
+    packed = _packed_ramp(c1, c2, n, limit, objs_p.device)
+    shape = (meta.shape[0], hp, wp)
     plane = (packed[:, None, :] if horizontal else packed[:, :, None]).expand(shape)
     return fused_v3(plane.contiguous(), objs_p, meta, env)
 

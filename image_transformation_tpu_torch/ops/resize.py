@@ -225,6 +225,60 @@ def build_coeffs_traced(in_size, out_size, in_max: int, out_max: int,
     )
 
 
+def _grows(in_size, out_size) -> torch.Tensor:
+    """Where a size grows, decided as K2 decides it: ``in / max(out, 1) < 1``
+    in float32."""
+    in_f = torch.as_tensor(in_size).to(_F32)
+    out_f = torch.clamp(torch.as_tensor(out_size, device=in_f.device).to(_F32), min=1.0)
+    return in_f / out_f < 1.0
+
+
+def _upscale_coeff_matrix(in_size, out_size, in_max: int, out_max: int) -> torch.Tensor:
+    """Float32 [..., out_max, in_max] normalized lanczos coefficients of a
+    growing size, each tap's argument ``x - center + 0.5`` taken from
+    integers: ``((2x + 1) out - (2o + 1) in) * (1 / (2 out))``, an exact
+    integer times the float32 reciprocal, and the window
+    ``[trunc(center - 2.5), trunc(center + 3.5))`` in integers. At a 5.85x
+    upscale the f32 ``center = (o + 0.5) * scale`` of
+    :func:`resample_coeff_matrix` is off by ~3e-5 px, which moves a
+    coefficient by up to ~90 units of 2^22 from Pillow's; this form stays
+    within 2 (the lanczos fit's own error). Rows at or past ``out_size`` are
+    zero; the weight sum adds the taps in index order, as K2 does."""
+    in_i = torch.as_tensor(in_size).to(torch.int64)
+    dev = in_i.device
+    out_i = torch.clamp(torch.as_tensor(out_size, device=dev).to(torch.int64), min=1)
+    col = (..., None, None)
+    n_in, n_out = in_i[col], out_i[col]
+    o = torch.arange(out_max, dtype=torch.int64, device=dev)[:, None]
+    x = torch.arange(in_max, dtype=torch.int64, device=dev)[None, :]
+    c2 = (2 * o + 1) * n_in  # 2 out * center
+    inv = _f32(1.0) / (2 * n_out).to(_F32)
+    arg = ((2 * x + 1) * n_out - c2).to(_F32) * inv
+    lo = torch.minimum(torch.div((c2 - 5 * n_out).clamp(min=0), 2 * n_out,
+                                 rounding_mode="floor"), n_in)
+    hi = torch.minimum(torch.div(c2 + 7 * n_out, 2 * n_out, rounding_mode="floor"), n_in)
+    w = _FILTERS["lanczos"](arg) * ((x >= lo) & (x < hi)).to(_F32)
+    wsum = torch.zeros(w.shape[:-1], dtype=_F32, device=dev)
+    for tap in range(in_max):
+        wsum = wsum + w[..., tap]
+    wsum = wsum[..., None]
+    w = w / torch.where(wsum != 0.0, wsum, _f32(1.0))
+    return w * (o < n_out).to(_F32)
+
+
+def build_coeffs_v3(in_size, out_size, in_max: int, out_max: int) -> torch.Tensor:
+    """int32 [..., out_max, in_max] lanczos tables as K2 (``csrc/fused_v3.cu``)
+    builds them in a launch whose envelope exceeds the objects' padded
+    extent: :func:`build_coeffs_traced` where the size shrinks or stays, and
+    :func:`_upscale_coeff_matrix`'s exact-argument form where it grows."""
+    traced = build_coeffs_traced(in_size, out_size, in_max, out_max)
+    up = _grows(in_size, out_size)
+    if not bool(up.any()):
+        return traced
+    upscaled = quantize_coeffs(_upscale_coeff_matrix(in_size, out_size, in_max, out_max))
+    return torch.where(up[..., None, None], upscaled, traced)
+
+
 # ----------------------- exact fixed-point resample -----------------------
 
 def _clip8(ss: torch.Tensor) -> torch.Tensor:

@@ -3,6 +3,7 @@
 from .sweep import (
     batched_compose_step,
     make_batched_compose,
+    make_gradient_render_step,
     make_solid_render_step,
     random_downscale_boxes,
     throughput_sweep,
@@ -11,6 +12,7 @@ from .sweep import (
 __all__ = [
     "batched_compose_step",
     "make_batched_compose",
+    "make_gradient_render_step",
     "make_solid_render_step",
     "random_downscale_boxes",
     "throughput_sweep",

@@ -1,5 +1,5 @@
-"""Batched rendering: the batched compose step, the solid render step and
-the throughput sweep.
+"""Batched rendering: the batched compose step, the solid and gradient
+render steps and the throughput sweep.
 
 Port of image_transformation_tpu/parallel/sweep.py (:29-385, :476-704).
 The JAX module's fallback chain (gen-3 -> gen-2 -> clamped -> XLA, with
@@ -33,12 +33,16 @@ from ..core.device import resolve_device
 from ..core.timing import span
 from ..ops.compose import composite_batch, composite_canvas_tables_indexed_many
 from ..ops.compose_kernels import (
+    Background,
     composite_batch_fused_v3,
+    fused_canvas_pad_hw,
+    gradient_ramp,
     pack_rgba_scalar,
     packed_luma,
     planarize_objects,
+    render_fused_v3_program,
+    render_fused_v3_reuse_program,
     render_solid_fused_v3_program,
-    render_solid_fused_v3_reuse_program,
 )
 
 from .mesh import Mesh, Sharding, shard_batched
@@ -50,6 +54,11 @@ STATS = ("luma", "fence")
 def _check_kernel(kernel: str) -> None:
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+
+
+def _check_stat(stat: str) -> None:
+    if stat not in STATS:
+        raise ValueError(f"stat must be one of {STATS}, got {stat!r}")
 
 
 def _on(x, dev: torch.device) -> torch.Tensor:
@@ -105,6 +114,48 @@ batched_compose_step = make_batched_compose
 """Alias kept for the public parallel API."""
 
 
+def _render_step(canvas_hw, out_max_hw, bg: Background, out_bounds_hw, reuse: bool,
+                 stat: str, dev: torch.device):
+    """The batched render step on the background ``bg`` (a packed solid
+    colour or a gradient ramp of the padded plane): the core that
+    :func:`make_solid_render_step` and :func:`make_gradient_render_step`
+    share, so that the background is all that differs between them."""
+    H, W = canvas_hw
+    state: List = [None]  # (plane, boxes) of the previous call
+
+    def run_stat(plane):
+        if stat == "fence":
+            return plane[:, 0, :128].sum(dim=1, dtype=torch.int64).to(torch.int32)
+        return packed_luma(plane[:, :H, :W])
+
+    def step(canvases, objs, obj_hw, boxes):
+        del canvases  # the background is made on the device
+        with span("itx.step"):
+            objs = _on(objs, dev)
+            objs_p = objs if objs.shape[4] != 4 else planarize_objects(objs)
+            obj_hw = _on(obj_hw, dev)
+            boxes = _on(boxes, dev)
+            with span("itx.render", dev):
+                if state[0] is None:
+                    plane = render_fused_v3_program(
+                        objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
+                        pipelined=True, static_obj_hw=out_bounds_hw,
+                    )
+                else:
+                    prev, prev_boxes = state[0]
+                    plane = render_fused_v3_reuse_program(
+                        prev, prev_boxes, objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
+                        static_obj_hw=out_bounds_hw, pipelined=True,
+                    )
+            if reuse:
+                state[0] = (plane, boxes)
+            with span("itx.stat", dev):
+                return plane, run_stat(plane)
+
+    step.release = lambda: state.__setitem__(0, None)
+    return step
+
+
 def make_solid_render_step(
     canvas_hw: Tuple[int, int],
     out_max_hw: Tuple[int, int],
@@ -123,6 +174,12 @@ def make_solid_render_step(
     ``boxes``. The render runs with the JAX step's settings (pipelined,
     per-object windows when ``static_obj_hw`` is given).
 
+    ``static_obj_hw``: per-object bounds (h, w) of the output sizes, which
+    size each object's K2 window and restore window (the asset sizes bound
+    every downscale-only layout). A box past its bound renders at the size
+    the window clamps it to, another scale than the box's;
+    :func:`make_gradient_render_step` takes the bounds as ``out_bounds_hw``.
+
     ``stat``: "luma" is each canvas's mean Rec.709 luminance of the crop
     (the sweep's run statistic); "fence" is ``sum(plane[:, 0, :128])`` as
     int32, a 512-byte-per-canvas read that proves the render ran.
@@ -133,44 +190,48 @@ def make_solid_render_step(
     the next call. A caller that keeps planes passes ``reuse=False`` or
     copies them; ``step.release()`` drops the kept plane.
     """
-    if stat not in STATS:
-        raise ValueError(f"stat must be one of {STATS}, got {stat!r}")
+    _check_stat(stat)
+    return _render_step(canvas_hw, out_max_hw, pack_rgba_scalar(bg_rgba), static_obj_hw, reuse,
+                        stat, resolve_device(device))
+
+
+def make_gradient_render_step(
+    canvas_hw: Tuple[int, int],
+    out_bounds_hw: Tuple[Tuple[int, int], ...],
+    gradient: Tuple,
+    reuse: bool = True,
+    stat: str = "luma",
+    device: str = "cuda",
+):
+    """Gradient-background render step: the step of
+    :func:`make_solid_render_step` (signature, reuse in place, ``stat``,
+    ``step.release()``) on the c1 -> c2 gradient ``gradient = (c1, c2,
+    horizontal)``, as ``ops.background.gradient_spec`` gives it (the
+    upstream fill_gradient). The gradient's packed line (:func:`
+    ops.compose_kernels.gradient_ramp`) is built once here; each reuse call
+    restores the previous call's windows from it (K3's ramp form).
+
+    ``out_bounds_hw``: per-object bounds (h, w) of the output sizes, one per
+    object. Their maximum is K2's output envelope (its scratch and the
+    plane's pad), and each sizes its object's K2 window and restore window,
+    so that upscaled boxes render and restore in full. An envelope past the
+    objects' padded extent also gives K2's growing axes tables from exact
+    tap arguments, within 2 units of 2^22 of Pillow's. A box larger than
+    its bound renders at the size its window clamps it to (each side cut to
+    its bound rounded up to 8 rows and 128 columns): the object at another
+    scale than the box's, anchored at the box's origin, with no error
+    raised (the check would cost a sync a step).
+    """
+    _check_stat(stat)
     dev = resolve_device(device)
-    H, W = canvas_hw
-    bg = pack_rgba_scalar(bg_rgba)
-    state: List = [None]  # (plane, boxes) of the previous call
-
-    def run_stat(plane):
-        if stat == "fence":
-            return plane[:, 0, :128].sum(dim=1, dtype=torch.int64).to(torch.int32)
-        return packed_luma(plane[:, :H, :W])
-
-    def step(canvases, objs, obj_hw, boxes):
-        del canvases  # the background comes from bg_rgba
-        with span("itx.step"):
-            objs = _on(objs, dev)
-            objs_p = objs if objs.shape[4] != 4 else planarize_objects(objs)
-            obj_hw = _on(obj_hw, dev)
-            boxes = _on(boxes, dev)
-            with span("itx.render", dev):
-                if state[0] is None:
-                    plane = render_solid_fused_v3_program(
-                        objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
-                        pipelined=True, static_obj_hw=static_obj_hw,
-                    )
-                else:
-                    prev, prev_boxes = state[0]
-                    plane = render_solid_fused_v3_reuse_program(
-                        prev, prev_boxes, objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
-                        static_obj_hw=static_obj_hw, pipelined=True,
-                    )
-            if reuse:
-                state[0] = (plane, boxes)
-            with span("itx.stat", dev):
-                return plane, run_stat(plane)
-
-    step.release = lambda: state.__setitem__(0, None)
-    return step
+    bounds = tuple((int(h), int(w)) for h, w in out_bounds_hw)
+    if not bounds or min(min(b) for b in bounds) < 1:
+        raise ValueError(f"out_bounds_hw must be positive (h, w) pairs, got {out_bounds_hw}")
+    envelope = (max(h for h, _ in bounds), max(w for _, w in bounds))
+    c1, c2, horizontal = gradient
+    ramp = gradient_ramp(c1, c2, horizontal, canvas_hw, fused_canvas_pad_hw(canvas_hw, envelope),
+                         dev)
+    return _render_step(canvas_hw, envelope, ramp, bounds, reuse, stat, dev)
 
 
 def _batch_mean(mesh: Mesh, luma: torch.Tensor, total: int) -> torch.Tensor:
@@ -429,6 +490,7 @@ def throughput_sweep(
 __all__ = [
     "batched_compose_step",
     "make_batched_compose",
+    "make_gradient_render_step",
     "make_sharded_solid_render",
     "make_solid_render_step",
     "random_downscale_boxes",

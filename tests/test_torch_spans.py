@@ -23,6 +23,7 @@ from image_transformation_tpu_torch.parallel.sweep import make_solid_render_step
 
 H, W, B = 160, 240, 2
 STEP_SPANS = {"itx.step": None, "itx.render": "itx.step", "itx.render.meta": "itx.render",
+              "itx.render.restore": "itx.render", "itx.render.compose": "itx.render",
               "itx.stat": "itx.step"}
 METRICS = Path(__file__).resolve().parents[1] / "bench_torch" / "metrics"
 
