@@ -703,9 +703,11 @@ def phase_luma(smi: str) -> dict:
     return res
 
 
-#: K2's MIXED instance (exact-argument tables on growing axes) and K3's ramp
-#: forms, by a substring of the kernel's mangled name in ptxas's report
-K2_MIXED_LAUNCHES = (("resample", "v3_resampleILb1E"), ("blend", "V3Rects"))
+#: K2's MIXED instance (exact-argument tables on growing axes, built by its
+#: table stage) and K3's ramp forms, by a substring of the kernel's mangled
+#: name in ptxas's report
+K2_MIXED_LAUNCHES = (("tables", "v3_tables"), ("resample", "v3_resampleILb1E"),
+                     ("blend", "V3Rects"))
 K3_RAMP_LAUNCHES = {True: (("restore", "restore_kernelILi1E"),),  # ROW_RAMP
                     False: (("restore", "restore_kernelILi2E"),)}  # COL_RAMP
 #: the UHD cell's configuration and mix (squarespace_uhd.score916)
@@ -760,13 +762,14 @@ def _canvas_err(a, b) -> int:
     return max((_max_abs_err(x, y) for x, y in zip(a, b) if not torch.equal(x, y)), default=0)
 
 
-def _k2_bound_sliced(plane, objs_p, meta, env, per):
-    """``k2_bound`` of a batch whose plain version runs in slices of
-    ``per`` canvases: bytes, multiply-adds and scalar time summed over the
-    slices, the shared objects read once."""
-    from image_transformation_tpu_torch.ops.roofline import bound, k2_bound
+def _k2_bound_sliced(plane, objs_p, meta, env, per, resample_only=False):
+    """``k2_bound`` (or ``k2_resample_bound``) of a batch whose plain
+    version runs in slices of ``per`` canvases: bytes, multiply-adds and
+    scalar time summed over the slices, the shared objects read once."""
+    from image_transformation_tpu_torch.ops.roofline import bound, k2_bound, k2_resample_bound
 
-    parts = [k2_bound(plane[i:i + per], objs_p, meta[i:i + per], env)
+    parts = [k2_resample_bound(objs_p, meta[i:i + per], env) if resample_only
+             else k2_bound(plane[i:i + per], objs_p, meta[i:i + per], env)
              for i in range(0, plane.shape[0], per)]
     nbytes = sum(r["bound_gbytes"] for r in parts) * 1e9 - (len(parts) - 1) * objs_p.numel()
     out = bound(nbytes, sum(r["bound_gmacs"] for r in parts) * 1e9)
@@ -775,10 +778,12 @@ def _k2_bound_sliced(plane, objs_p, meta, env, per):
 
 
 def phase_gradient(smi: str):
-    """Kernel-table row 17 (K3's ramp forms) and K2's MIXED instance at the
-    UHD cell's shapes: make_gradient_render_step at 2160 wide x 3840 high,
-    B=256, the cell's per-object output bounds at s0 and its 12-level boxes
-    (seed 0), once on the bundle's gradient axis and once on the other."""
+    """Kernel-table rows 17 (K3's ramp forms) and 18 (K2's table stage) and
+    K2's MIXED instance at the UHD cell's shapes: make_gradient_render_step
+    at 2160 wide x 3840 high, B=256, the cell's per-object output bounds at
+    s0 and its 12-level boxes (seed 0), once on the bundle's gradient axis
+    and once on the other; on the bundle's axis K2, its table stage and its
+    resample are timed apart (the profiler) beside their bounds."""
     import numpy as np
     import torch
 
@@ -786,7 +791,7 @@ def phase_gradient(smi: str):
     from image_transformation_tpu_torch.core.bundle import load_bundle
     from image_transformation_tpu_torch.ops import compose_kernels as ck
     from image_transformation_tpu_torch.ops.background import gradient_spec
-    from image_transformation_tpu_torch.ops.roofline import k3_bound
+    from image_transformation_tpu_torch.ops.roofline import k2_tables_bound, k3_bound
     from image_transformation_tpu_torch.parallel import make_gradient_render_step
 
     cfg = json.loads((ROOT / UHD_CONFIG).read_text())
@@ -822,9 +827,10 @@ def phase_gradient(smi: str):
         launches = dict(ck.LAUNCHES)
         pre_k3, origins, extents, ramp = cap.k3
         pre_k2, _, meta, env = cap.k2
-        chunk = max(1, min(B, ck._V3_SCRATCH_BYTES // (N * 4 * env[0] * env[1])))
+        chunk = ck._v3_chunk(B, N, *env, mixed=True)
         want = {"restore_windows": UHD_REUSE_STEPS, "fused_v3": UHD_REUSE_STEPS,
                 "fused_v3_chunks": UHD_REUSE_STEPS * -(-B // chunk),
+                "fused_v3_tables": UHD_REUSE_STEPS * -(-B // chunk),
                 "packed_luma": UHD_REUSE_STEPS}
         if any(launches[k] != v for k, v in want.items()):
             raise AssertionError(f"{tag} {UHD_REUSE_STEPS} reuse steps launched {launches}, "
@@ -867,26 +873,58 @@ def phase_gradient(smi: str):
             del part
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        # the table stage alone == its plain version (every entry, the card's meta)
+        pad = tuple(objs_p.shape[3:])
+        tables = ck.fused_v3_tables(meta, pad, env)
+        t0 = time.perf_counter()
+        tables_ref = ck.fused_v3_tables_reference(meta, pad, env)
+        torch.cuda.synchronize()
+        tables_plain_ms = (time.perf_counter() - t0) * 1e3
+        tables_diff = int((tables != tables_ref).sum())
+        if tables_diff:
+            raise AssertionError(f"{tag} K2's table stage != plain version in {tables_diff} "
+                                 f"of {tables.numel()} values")
+        del tables, tables_ref
         if axis == ("horizontal" if bundle_axis else "vertical"):
             work = pre_k2.clone()
             ms = cuda_ms(lambda: ck.fused_v3(work, objs_p, meta, env), 5)
             ms2 = cuda_ms(lambda: ck.fused_v3(work, objs_p, meta, env), 5)
+            us, _, _ = _profiled(lambda: ck.fused_v3(work, objs_p, meta, env), 3)
             del work
+            part_ms = {label: sum(t for name, t in us.items() if key in name) / 1e3
+                       for label, key in (("tables", "v3_tables"), ("resample", "v3_resample"),
+                                          ("blend", "box_blend"))}
             r2 = results["fused_v3"] = dict(
                 max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms,
                 **_k2_bound_sliced(pre_k2, objs_p, meta, env, UHD_PLAIN_SLICE))
-            smem = ck.launch_smem("fused_v3", *objs_p.shape[3:], N)
+            rr = results["fused_v3_resample"] = dict(
+                max_abs_err=err, ms=part_ms["resample"], plain_ms=plain_ms,
+                **_k2_bound_sliced(pre_k2, objs_p, meta, env, UHD_PLAIN_SLICE, True))
+            rt = results["fused_v3_tables"] = dict(
+                max_abs_err=0, ms=part_ms["tables"], plain_ms=tables_plain_ms,
+                **k2_tables_bound(meta, pad, env))
+            smem = ck.launch_smem("fused_v3", *pad, N)
             print(f"{tag} K2 (MIXED: envelope {tuple(env)} past the pad "
-                  f"{tuple(objs_p.shape[3:])}) B={B} in {-(-B // chunk)} chunks of {chunk}: "
+                  f"{pad}) B={B} in {-(-B // chunk)} chunks of {chunk}: "
                   f"K2 == plain (max abs err {err}); K2 {r2['ms']:.4f} ms ({ms:.4f}, {ms2:.4f}), "
                   f"plain {plain_ms:.1f} ms (one pass, host clock, slices of {UHD_PLAIN_SLICE}), "
                   f"{_bound_text(r2)}; launches per chunk: "
-                  f"{launch_text(K2_MIXED_LAUNCHES, smem)} on {smi}")
+                  f"{launch_text(K2_MIXED_LAUNCHES, (0, *smem))} on {smi}")
+            print(f"{tag} K2's table stage == plain (every entry; plain {tables_plain_ms:.1f} ms, "
+                  f"host clock): {rt['ms']:.4f} ms a call of {-(-B // chunk)} launches "
+                  f"(profiler), {_bound_text(rt)}, share of the bound "
+                  f"{rt['bound_ms'] / max(rt['ms'], 1e-9):.4f}")
+            print(f"{tag} K2's MIXED resample: {rr['ms']:.4f} ms a call (profiler; blend "
+                  f"{part_ms['blend']:.4f} ms), {_bound_text(rr)}, share of the bound "
+                  f"{rr['bound_ms'] / max(rr['ms'], 1e-9):.4f}; plain version: K2's, above")
+            print(f"{tag} ptxas: {launch_text(K2_PTXAS[:1], smem[:1])} (v3_resample<false>); "
+                  f"{launch_text(K2_MIXED_LAUNCHES[:2], (0, smem[0]))}")
         else:
             print(f"{tag} K2 (MIXED) == plain (max abs err {err}, {plain_ms:.1f} ms plain)")
         print(f"{tag} reuse chain: {UHD_REUSE_STEPS} reuse steps == a fresh render; launches "
               f"around them: K3 {launches['restore_windows']}, K2 {launches['fused_v3']} calls "
-              f"in {launches['fused_v3_chunks']} chunks, luma {launches['packed_luma']}")
+              f"in {launches['fused_v3_chunks']} chunks, fused_v3_tables "
+              f"{launches['fused_v3_tables']}, luma {launches['packed_luma']}")
         for k, v in launches.items():
             counts[k] = counts.get(k, 0) + v
         step.release()
@@ -2457,6 +2495,8 @@ def row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15, luma
     rows += [("15", "K4 stage", v, r) for v, r in row15["variants"].items()]
     rows.append(("16", "luma", f"score1080_b{ROOFLINE_B}", luma))
     rows += [("13", "K2", "uhd_gradient_b256", gradient["fused_v3"]),
+             ("13", "K2 resample", "uhd_gradient_b256", gradient["fused_v3_resample"]),
+             ("13", "K2 tables", "uhd_gradient_b256", gradient["fused_v3_tables"]),
              ("17", "K3 ramp", "uhd_horizontal_b256", gradient["restore_horizontal"]),
              ("17", "K3 ramp", "uhd_vertical_b256", gradient["restore_vertical"])]
     return rows
@@ -2647,9 +2687,12 @@ def main_smoke() -> int:
                max_abs_err=max(batched["fused_v3"]["max_abs_err"], variants_k2["max_abs_err"],
                                gradient["fused_v3"]["max_abs_err"]),
                chunks_uhd_gradient=gradient_launches["fused_v3_chunks"],
+               fused_v3_tables=gradient_launches["fused_v3_tables"],
                geometries={"sweep_1080p_b64": batched["fused_v3"],
                            f"variants_1080p_v{WIDE_V}": variants_k2,
-                           "uhd_gradient_b256": gradient["fused_v3"]}),
+                           "uhd_gradient_b256": gradient["fused_v3"],
+                           "uhd_gradient_b256_resample": gradient["fused_v3_resample"],
+                           "uhd_gradient_b256_tables": gradient["fused_v3_tables"]}),
         _entry("restore_windows", RESTORE_SOURCE, RESTORE_REPLACES,
                batched_launches["restore_windows"] + gradient_launches["restore_windows"],
                batched["restore_windows"],

@@ -20,7 +20,7 @@
 // What bounds it on this card: the integer multiply-adds of the two
 // resample passes on each window's taps (bound by operations), and the f32
 // table arithmetic (a degree-12 Horner and a divide per tap). What the
-// design does about it, in two launches:
+// design does about it, in two launches (three in a mixed launch):
 // - resample (csrc/resample.cuh), one block per placement and 32x32 output
 //   tile: each block builds its 32 columns' and 32 rows' windows, weight
 //   sums and quantized taps once, into compact [rows][taps] arrays in
@@ -45,6 +45,13 @@
 //   its window is computed in integers (within 2 units of Pillow's tables).
 //   The other launches run the f32 form alone: compiled beside the mixed
 //   one in a kernel, it ran 4% slower (1080p B=256, 0.963 -> 1.003 ms);
+// - in a mixed launch the growing axes' tables are built once per
+//   placement, not once per tile: a table stage (v3_tables) runs ahead of
+//   the resample and writes each output position's window and quantized
+//   taps (32 bytes, `TapEntry`) to a chunk-sized buffer; a tile whose axis
+//   grows loads its 32 entries with 16-byte loads instead of rebuilding
+//   them (the build was 52% of an upscale tile's cycles at the UHD cell's
+//   shapes). A shrinking axis keeps the per-tile build;
 // - blend (csrc/box_blend.cuh): over each placement's box only, z-order by
 //   the last covering placement (Hopper runs blocks in no order and the
 //   windows of one canvas overlap), the canvas's boxes staged in shared
@@ -58,6 +65,9 @@
 //   objects u8  [Bo, N, 4, ph, pw]     planar, Bo == 1 (shared) or B
 //   meta    i32 [B, N, 10]             ws_x ws_y dx dy same valid in_h in_w out_h out_w
 //   res     u8  [B, N, mh, mw, 4]      scratch (resampled RGBA)
+//   tables  i32 [B, N, P, 8]           scratch of a mixed launch (else null):
+//           per output position, columns first (P = ceil32(mw) +
+//           ceil32(mh)), a growing axis's 6 taps, lo and hi
 // Sizes are clamped to the envelopes (in to (ph, pw), out to (mh, mw)).
 
 #include <cstdint>
@@ -201,6 +211,19 @@ __device__ __forceinline__ int coeff(const Axis& a, float center, float wsum, in
   return (int)truncf(__fadd_rn(scaled, w < 0.0f ? -0.5f : 0.5f));
 }
 
+// A growing axis's output position in the table stage's buffer: its window
+// [lo, hi) and its quantized taps, zero past hi. In the exact-argument form
+// hi - lo <= (12 out) / (2 out) = 6, so 6 slots hold every window.
+constexpr int ENTRY_TAPS = 6;
+struct TapEntry {
+  int4 a, b;  // taps 0-3; taps 4-5, lo, hi
+};
+static_assert(sizeof(TapEntry) == 32, "an entry is two 16-byte loads");
+
+__host__ __device__ __forceinline__ int ceil_tile(int v) {
+  return (v + resample::TX - 1) / resample::TX * resample::TX;
+}
+
 // K2's tables for one tile: each tile column's and row's window and weight
 // sum (centre and sum in shared memory, `center`/`wsum` [TX + TY], columns
 // first), with the plain version's f32 op order (row_params, coeff); with
@@ -226,10 +249,27 @@ struct V3Taps {
   // entries), the quantized taps built once into compact [rows][taps]
   // arrays (ragged: window c's taps start at hoff[c] / voff[c]; read by
   // SharedTaps). Returns whether they fit (the same in every thread).
+  // With MIXED, an axis given its table stage's entries (`th` for the
+  // tile's columns, `tv` for its rows; null where the axis shrinks) loads
+  // its windows and taps from them instead of building them.
   __device__ bool prepare(resample::TileWindows& w, int ox0, int oy0, int out_w, int out_h,
-                          int* coef_h, int* coef_v, int cap_h, int cap_v) const {
+                          int* coef_h, int* coef_v, int cap_h, int cap_v,
+                          const TapEntry* th = nullptr, const TapEntry* tv = nullptr) const {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (warp < 2) {  // warp 0: the tile's columns, warp 1: its rows
+    const TapEntry* tab = warp == 0 ? th : tv;
+    if (warp < 2 && MIXED && tab != nullptr) {  // a growing axis: the stage's entries
+      const int4 a = __ldg(&tab[lane].a), b = __ldg(&tab[lane].b);
+      resample::set_window(w, warp, lane, b.z, b.w);
+      const int off = warp == 0 ? w.hoff[lane] : w.voff[lane], len = b.w - b.z;
+      int* dst = (warp == 0 ? coef_h : coef_v) + off;
+      if (off + len <= (warp == 0 ? cap_h : cap_v)) {  // all lanes, exactly when they fit
+        const int t[ENTRY_TAPS] = {a.x, a.y, a.z, a.w, b.x, b.y};
+#pragma unroll
+        for (int i = 0; i < ENTRY_TAPS; ++i) {
+          if (i < len) dst[i] = t[i];
+        }
+      }
+    } else if (warp < 2) {  // warp 0: the tile's columns, warp 1: its rows
       const Row r = warp == 0 ? row_params<MIXED>(axh, ox0 + lane, out_w)
                               : row_params<MIXED>(axv, oy0 + lane, out_h);
       center[warp * resample::TX + lane] = r.center;
@@ -237,9 +277,21 @@ struct V3Taps {
       resample::set_window(w, warp, lane, r.lo, r.hi);
     }
     __syncthreads();
-    if (w.total[0] > cap_h || w.total[1] > cap_v) return false;
-    // the quantized taps, one window per warp at a time, lanes over taps
-    for (int e = warp; e < resample::TX + resample::TY; e += resample::WARPS) {
+    if (w.total[0] > cap_h || w.total[1] > cap_v) {
+      if (MIXED && warp < 2 && tab != nullptr) {  // the computed taps need the centre and sum
+        const Row r = warp == 0 ? row_params<MIXED>(axh, ox0 + lane, out_w)
+                                : row_params<MIXED>(axv, oy0 + lane, out_h);
+        center[warp * resample::TX + lane] = r.center;
+        wsum[warp * resample::TX + lane] = r.wsum;
+      }
+      return false;
+    }
+    // the quantized taps, one window per warp at a time, lanes over taps;
+    // entries e < TX are the columns', the rest the rows' (loaded above
+    // where the axis has entries)
+    const int e0 = MIXED && th != nullptr ? resample::TX : 0;
+    const int e1 = MIXED && tv != nullptr ? resample::TX : resample::TX + resample::TY;
+    for (int e = e0 + warp; e < e1; e += resample::WARPS) {
       const bool horiz = e < resample::TX;
       const int c = horiz ? e : e - resample::TX;
       const int lo = horiz ? w.hlo[c] : w.vlo[c], hi = horiz ? w.hhi[c] : w.vhi[c];
@@ -259,16 +311,22 @@ struct V3Taps {
 
 // The tables and the resample of one tile of a placement that is neither
 // dropped nor a plain copy; `win`, `center` and `wsum` in shared memory.
+// `entries` is the placement's table-stage entries (columns, then rows, at
+// ceil_tile(mw)), null where the launch has none.
 template <bool MIXED>
 __device__ __forceinline__ void resample_placement_tile(
     const resample::PlanarSrc& src, uchar4* out, const Meta& m, int ox0, int oy0, int mw,
-    int cap_h, int cap_v, resample::TileWindows& win, float* center, float* wsum) {
+    int cap_h, int cap_v, resample::TileWindows& win, float* center, float* wsum,
+    const TapEntry* entries) {
   extern __shared__ uint32_t smem[];
   int* coef = reinterpret_cast<int*>(smem + resample::TILE_SMEM_BYTES / 4);
   const V3Taps<MIXED> taps{axis_params<MIXED>(m.in_w, m.out_w),
                            axis_params<MIXED>(m.in_h, m.out_h), center, wsum};
+  const bool tabled = MIXED && entries != nullptr;
+  const TapEntry* th = tabled && grows(taps.axh) ? entries + ox0 : nullptr;
+  const TapEntry* tv = tabled && grows(taps.axv) ? entries + ceil_tile(mw) + oy0 : nullptr;
   const bool staged =
-      taps.prepare(win, ox0, oy0, m.out_w, m.out_h, coef, coef + cap_h, cap_h, cap_v);
+      taps.prepare(win, ox0, oy0, m.out_w, m.out_h, coef, coef + cap_h, cap_h, cap_v, th, tv);
   __syncthreads();
   if (staged) {
     resample::resample_tile(src, resample::SharedTaps{coef, coef + cap_h, &win}, win, smem, out,
@@ -278,14 +336,45 @@ __device__ __forceinline__ void resample_placement_tile(
   }
 }
 
+// (0) grid (B*N, ceil(P / 256)), a mixed launch only: one thread per output
+// position of a placement (P = ceil_tile(mw) + ceil_tile(mh), columns
+// first) writes the growing axis's window and quantized taps with the
+// tiles' own functions (row_params, coeff: bit-equal to a tile's build).
+// Positions are written where a tile reads them: live placements that are
+// not a plain copy, axes that grow, positions under ceil_tile(out).
+__global__ void __launch_bounds__(256)
+v3_tables(const int* __restrict__ meta, TapEntry* __restrict__ tables, int ph, int pw, int mh,
+          int mw) {
+  const int bk = blockIdx.x;
+  const int pcols = ceil_tile(mw), npos = pcols + ceil_tile(mh);
+  const int p = blockIdx.y * blockDim.x + threadIdx.x;
+  if (p >= npos) return;
+  const Meta m = load_meta(meta, bk, ph, pw, mh, mw);
+  const bool col = p < pcols;
+  const int o = col ? p : p - pcols, out = col ? m.out_w : m.out_h;
+  if (m.valid <= 0 || m.same > 0 || o >= ceil_tile(out)) return;
+  const Axis a = axis_params<true>(col ? m.in_w : m.in_h, out);
+  if (!grows(a)) return;
+  const Row r = row_params<true>(a, o, out);
+  int t[ENTRY_TAPS];
+#pragma unroll
+  for (int i = 0; i < ENTRY_TAPS; ++i) {
+    t[i] = r.lo + i < r.hi ? coeff<true>(a, r.center, r.wsum, r.lo + i) : 0;
+  }
+  TapEntry* e = tables + (size_t)bk * npos + p;
+  e->a = make_int4(t[0], t[1], t[2], t[3]);
+  e->b = make_int4(t[4], t[5], r.lo, r.hi);
+}
+
 // (1) grid (B*N, ceil(mw/TX), ceil(mh/TY)): one tile of one placement,
 // resampled into res (or the object's own pixels where `same` is set); with
-// MIXED the growing axes' tables take the exact-argument form.
+// MIXED the growing axes' tables take the exact-argument form, loaded from
+// `tables` (the stage's buffer) where it is not null.
 template <bool MIXED>
 __global__ void __launch_bounds__(resample::THREADS, 3)
 v3_resample(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
-            uchar4* __restrict__ res, int Bo, int N, int ph, int pw, int mh, int mw,
-            int cap_h, int cap_v, int vec) {
+            uchar4* __restrict__ res, const TapEntry* __restrict__ tables, int Bo, int N, int ph,
+            int pw, int mh, int mw, int cap_h, int cap_v, int vec) {
   const int bk = blockIdx.x;
   const Meta m = load_meta(meta, bk, ph, pw, mh, mw);
   const int ox0 = blockIdx.y * resample::TX, oy0 = blockIdx.z * resample::TY;
@@ -301,7 +390,12 @@ v3_resample(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
   }
   __shared__ resample::TileWindows win;
   __shared__ float center[resample::TX + resample::TY], wsum[resample::TX + resample::TY];
-  resample_placement_tile<MIXED>(src, out, m, ox0, oy0, mw, cap_h, cap_v, win, center, wsum);
+  const TapEntry* entries =
+      MIXED && tables != nullptr
+          ? tables + (size_t)bk * (ceil_tile(mw) + ceil_tile(mh))
+          : nullptr;
+  resample_placement_tile<MIXED>(src, out, m, ox0, oy0, mw, cap_h, cap_v, win, center, wsum,
+                                 entries);
 }
 
 // K2's placement rectangles, from the meta: the box at its origin, 0 when
@@ -319,11 +413,25 @@ struct V3Rects {
 
 }  // namespace
 
-// Launches K2's two kernels for B canvases (one chunk of the wrapper's
-// batch); pointers are already offset to the chunk.
+static_assert(resample::TX == resample::TY, "one tile rounding for both axes");
+
+// K2's table stage alone (for a mixed launch; also the card tests' entry):
+// writes `tables` [B*N, ceil_tile(mw) + ceil_tile(mh)] entries.
+extern "C" int fused_v3_tables_launch(const void* meta, void* tables, int B, int N, int ph,
+                                      int pw, int mh, int mw, void* stream) {
+  const unsigned bn = (unsigned)B * (unsigned)N;
+  const dim3 grid(bn, (ceil_tile(mw) + ceil_tile(mh) + 255) / 256);
+  v3_tables<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(meta), static_cast<TapEntry*>(tables), ph, pw, mh, mw);
+  return (int)cudaGetLastError();
+}
+
+// Launches K2's kernels for B canvases (one chunk of the wrapper's batch):
+// in a mixed launch, given `tables`, the table stage, then the resample and
+// the blend; pointers are already offset to the chunk.
 extern "C" int fused_v3_launch(void* plane, const void* objects, const void* meta, void* res,
-                               int B, int Bo, int N, int hp, int wp, int ph, int pw, int mh,
-                               int mw, void* stream) {
+                               void* tables, int B, int Bo, int N, int hp, int wp, int ph,
+                               int pw, int mh, int mw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned bn = (unsigned)B * (unsigned)N;
   // the compact tap arrays where they fit beside the core (else caps 0: every
@@ -333,16 +441,22 @@ extern "C" int fused_v3_launch(void* plane, const void* objects, const void* met
   // an envelope past the objects' padded extent: the launch's growing axes
   // take the exact-argument form (ops/resize.py:build_coeffs_v3)
   const bool mixed = mh > ph || mw > pw;
+  if (!mixed) tables = nullptr;
+  cudaError_t err;
+  if (tables != nullptr) {
+    err = (cudaError_t)fused_v3_tables_launch(meta, tables, B, N, ph, pw, mh, mw, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   const auto kernel = mixed ? v3_resample<true> : v3_resample<false>;
-  cudaError_t err = mixed ? resample::allow_smem<1>(kernel, smem)
-                          : resample::allow_smem<0>(kernel, smem);
+  err = mixed ? resample::allow_smem<1>(kernel, smem) : resample::allow_smem<0>(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int vec = ((size_t)ph * pw) % 4 == 0 && reinterpret_cast<uintptr_t>(objects) % 4 == 0;
   const dim3 grid_r(bn, (mw + resample::TX - 1) / resample::TX,
                     (mh + resample::TY - 1) / resample::TY);
   kernel<<<grid_r, resample::THREADS, smem, s>>>(
       static_cast<const uint8_t*>(objects), static_cast<const int*>(meta),
-      static_cast<uchar4*>(res), Bo, N, ph, pw, mh, mw, cap_h, cap_v, vec);
+      static_cast<uchar4*>(res), static_cast<const TapEntry*>(tables), Bo, N, ph, pw, mh, mw,
+      cap_h, cap_v, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_b(bn, (mw + box_blend::TILE - 1) / box_blend::TILE,
@@ -353,8 +467,8 @@ extern "C" int fused_v3_launch(void* plane, const void* objects, const void* met
   return (int)cudaGetLastError();
 }
 
-// dynamic shared memory of each of K2's two launches, for objects padded
-// to (ph, pw) and N per canvas
+// dynamic shared memory of K2's resample and blend launches, for objects
+// padded to (ph, pw) and N per canvas (the table stage takes none)
 extern "C" int fused_v3_smem(int ph, int pw, int N, int* out) {
   int cap_h, cap_v;
   out[0] = resample::tap_caps(ph, pw, &cap_h, &cap_v);

@@ -76,6 +76,8 @@ from ..core.device import resolve_device
 from ..core.timing import launch_range, span
 from .compose import _blend_window, alpha_over_u8
 from .resize import (
+    UPSCALE_TAPS,
+    _grows,
     build_coeffs_host,
     build_coeffs_traced,
     build_coeffs_v3,
@@ -85,16 +87,18 @@ from .resize import (
     resize_u8,
     resize_with_tables,
     unpremultiply_rgba,
+    upscale_tap_windows,
 )
 
 FLAG_LIVE = 1
 FLAG_IDENTITY = 2
 
 #: launches since the last reset (one per launching wrapper call on CUDA;
-#: "fused_v3_chunks" counts each chunk a K2 call launches over)
-LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "fused_v3_chunks": 0, "restore_windows": 0,
-            "window_blend": 0, "window_blend_planar": 0, "window_blend_stage": 0,
-            "packed_luma": 0}
+#: "fused_v3_chunks" counts each chunk a K2 call launches over, and
+#: "fused_v3_tables" each chunk that ran K2's table stage: a mixed launch's)
+LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "fused_v3_chunks": 0, "fused_v3_tables": 0,
+            "restore_windows": 0, "window_blend": 0, "window_blend_planar": 0,
+            "window_blend_stage": 0, "packed_luma": 0}
 
 _MAX_GRID_X = (1 << 31) - 1  # CUDA's limit on gridDim.x, which carries B*N
 _MAX_GRID_Z = 65535  # CUDA's limit on gridDim.y and gridDim.z
@@ -222,7 +226,8 @@ _ARGTYPES = {
     "fused_compose_smem": [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "fused_v3_smem": [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "fused_compose_bounds_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-    "fused_v3_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "fused_v3_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "fused_v3_tables_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "restore_windows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "restore_windows_ramp_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "restore_windows_smem": [ctypes.c_int],
@@ -760,6 +765,101 @@ def fused_v3_reference(plane: torch.Tensor, objs_p: torch.Tensor,
     return plane
 
 
+#: K2's table stage: each placement's output positions, columns then rows,
+#: each axis rounded up to the resample's 32-wide tiles; an entry is a
+#: growing axis's UPSCALE_TAPS taps, then lo and hi (int32)
+_V3_TILE = 32
+_V3_ENTRY = UPSCALE_TAPS + 2
+
+
+def _v3_table_positions(out_max_hw) -> int:
+    """Output positions of one placement in K2's table buffer."""
+    mh, mw = out_max_hw
+    return _round_up(mw, _V3_TILE) + _round_up(mh, _V3_TILE)
+
+
+def _v3_chunk(B: int, N: int, mh: int, mw: int, mixed: bool) -> int:
+    """Canvases a K2 launch takes: its scratch (the resampled objects, and
+    in a mixed launch the table buffer) within ``_V3_SCRATCH_BYTES``."""
+    per = N * 4 * mh * mw
+    if mixed:
+        per += N * _v3_table_positions((mh, mw)) * _V3_ENTRY * 4
+    return max(1, min(B, _V3_SCRATCH_BYTES // per))
+
+
+def _check_v3_tables_args(meta, obj_pad_hw, out_max_hw) -> None:
+    if not torch.is_tensor(meta) or meta.dtype != torch.int32:
+        raise TypeError("meta must be an int32 torch.Tensor")
+    if meta.dim() != 3 or meta.shape[2] != _META_COLS:
+        raise ValueError(f"meta must be [B, N, {_META_COLS}], got {tuple(meta.shape)}")
+    if not meta.is_contiguous():
+        raise ValueError("meta must be contiguous")
+    if min(obj_pad_hw) < 1 or min(out_max_hw) < 1:
+        raise ValueError(f"obj_pad_hw {obj_pad_hw} and out_max_hw {out_max_hw} must be positive")
+
+
+def _v3_table_axes(meta: torch.Tensor, obj_pad_hw, out_max_hw):
+    """K2's table buffer by axis, columns then rows: each axis's sizes
+    clamped as K2 clamps them (``n_in``, ``n_out`` int64 [B, N]) and the
+    positions its stage writes (bool [B, N, positions]): where a resample
+    tile reads them, in a placement that is valid and not a plain copy, on
+    an axis that grows, under the output size rounded up to a tile."""
+    (ph, pw), (mh, mw) = obj_pad_hw, out_max_hw
+    m = meta.to(torch.int64)
+    live = (m[..., 5] > 0) & (m[..., 4] <= 0)
+    for in_col, out_col, in_max, out_max in ((7, 9, pw, mw), (6, 8, ph, mh)):
+        n_in, n_out = m[..., in_col].clamp(0, in_max), m[..., out_col].clamp(0, out_max)
+        o = torch.arange(_round_up(out_max, _V3_TILE), device=meta.device)
+        tiles_out = (n_out + _V3_TILE - 1) // _V3_TILE * _V3_TILE
+        yield n_in, n_out, (live & _grows(n_in, n_out))[..., None] & (o < tiles_out[..., None])
+
+
+def fused_v3_tables_reference(meta: torch.Tensor, obj_pad_hw: Tuple[int, int],
+                              out_max_hw: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of K2's table stage: int32 [B, N, P, 8], per placement
+    its columns' entries then its rows' (P = :func:`_v3_table_positions`),
+    each the window's taps (``ops.resize.upscale_tap_windows``, the
+    exact-argument form), lo and hi, where the stage writes them
+    (:func:`_v3_table_axes`), and 0 elsewhere."""
+    _check_v3_tables_args(meta, obj_pad_hw, out_max_hw)
+    parts = []
+    for n_in, n_out, written in _v3_table_axes(meta, obj_pad_hw, out_max_hw):
+        lo, hi, taps = upscale_tap_windows(n_in, n_out, written.shape[-1])
+        entry = torch.cat([taps, lo[..., None].to(torch.int32), hi[..., None].to(torch.int32)], -1)
+        parts.append(entry * written[..., None])
+    return torch.cat(parts, dim=2)
+
+
+def fused_v3_tables(meta: torch.Tensor, obj_pad_hw: Tuple[int, int],
+                    out_max_hw: Tuple[int, int]) -> torch.Tensor:
+    """K2's table stage alone, as a mixed :func:`fused_v3` launch runs it
+    ahead of the resample: :func:`fused_v3_tables_reference`'s buffer (its
+    unwritten entries 0). On a CUDA device it launches the stage on the
+    current stream (counted in ``LAUNCHES["fused_v3_tables"]``) and raises
+    if the launch fails; on the CPU it runs the plain version."""
+    _check_v3_tables_args(meta, obj_pad_hw, out_max_hw)
+    if meta.device.type == "cpu":
+        return fused_v3_tables_reference(meta, obj_pad_hw, out_max_hw)
+    if meta.device.type != "cuda":
+        raise ValueError(f"fused_v3_tables runs on cuda or cpu, not {meta.device}")
+    B, N, _ = meta.shape
+    ph, pw = (int(v) for v in obj_pad_hw)
+    mh, mw = (int(v) for v in out_max_hw)
+    dev = meta.device
+    tables = torch.zeros((B, N, _v3_table_positions((mh, mw)), _V3_ENTRY), dtype=torch.int32,
+                         device=dev)
+    if B * N == 0:
+        return tables
+    with torch.cuda.device(dev):
+        rc = _kernel_entry("fused_v3_tables_launch")(
+            meta.data_ptr(), tables.data_ptr(), B, N, ph, pw, mh, mw,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_v3_tables: kernel launch failed with CUDA error {rc}")
+    LAUNCHES["fused_v3_tables"] += 1
+    return tables
+
+
 def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
              out_max_hw: Tuple[int, int]) -> torch.Tensor:
     """Resample every live placement with tables built from its sizes and
@@ -779,7 +879,10 @@ def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
     Upscale accuracy depends on the envelope, not on the box: where
     ``out_max_hw`` exceeds the objects' padded extent (mh > ph or mw > pw)
     a growing axis's tables take exact tap arguments (within 2 units of
-    2^22 of Pillow's); otherwise every table takes the f32 centre, which at
+    2^22 of Pillow's), built once per placement by K2's table stage
+    (:func:`fused_v3_tables`, counted in ``LAUNCHES["fused_v3_tables"]``
+    once per chunk) ahead of the resample; otherwise every table takes
+    the f32 centre, which at
     large upscales within the pad moves pixels by up to 3. So one upscaled
     box may render with other bytes under another caller's envelope.
     """
@@ -793,22 +896,26 @@ def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
     mh, mw = (int(v) for v in out_max_hw)
     if min(B, N, hp, wp, ph, pw) == 0:
         return plane
-    chunk = max(1, min(B, _V3_SCRATCH_BYTES // (N * 4 * mh * mw)))
+    mixed = mh > ph or mw > pw  # the launch builds its growing axes' tables first
+    chunk = _v3_chunk(B, N, mh, mw, mixed)
     fn = _kernel_entry("fused_v3_launch")
     dev = plane.device
     res = torch.empty((chunk, N, mh, mw, 4), dtype=torch.uint8, device=dev)
+    tables = (torch.empty((chunk, N, _v3_table_positions((mh, mw)), _V3_ENTRY),
+                          dtype=torch.int32, device=dev) if mixed else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for b0 in range(0, B, chunk):
             nb = min(chunk, B - b0)
             rc = fn(
                 plane[b0].data_ptr(), objs_p[0 if Bo == 1 else b0].data_ptr(),
-                meta[b0].data_ptr(), res.data_ptr(),
+                meta[b0].data_ptr(), res.data_ptr(), tables.data_ptr() if mixed else None,
                 nb, Bo, N, hp, wp, ph, pw, mh, mw, stream,
             )
             if rc != 0:
                 raise RuntimeError(f"fused_v3: kernel launch failed with CUDA error {rc}")
             LAUNCHES["fused_v3_chunks"] += 1
+            LAUNCHES["fused_v3_tables"] += mixed
     LAUNCHES["fused_v3"] += 1
     return plane
 

@@ -233,6 +233,28 @@ def _grows(in_size, out_size) -> torch.Tensor:
     return in_f / out_f < 1.0
 
 
+def _upscale_windows(in_size, out_size, out_max: int):
+    """The exact-argument form's integers for each output row ``o`` of a
+    growing size: ``c2 = (2o + 1) in`` (twice the output size times the
+    centre) and the window ``[lo, hi) = [trunc(center - 2.5),
+    trunc(center + 3.5))`` clamped to ``[0, in]``, with ``o`` int64
+    ``[out_max, 1]``, ``c2``, ``lo``, ``hi`` int64 ``[..., out_max, 1]``,
+    ``n_out = max(out, 1)`` ``[..., 1, 1]`` and the float32 reciprocal
+    ``1 / (2 out)``."""
+    in_i = torch.as_tensor(in_size).to(torch.int64)
+    dev = in_i.device
+    out_i = torch.clamp(torch.as_tensor(out_size, device=dev).to(torch.int64), min=1)
+    col = (..., None, None)
+    n_in, n_out = in_i[col], out_i[col]
+    o = torch.arange(out_max, dtype=torch.int64, device=dev)[:, None]
+    c2 = (2 * o + 1) * n_in  # 2 out * center
+    inv = _f32(1.0) / (2 * n_out).to(_F32)
+    lo = torch.minimum(torch.div((c2 - 5 * n_out).clamp(min=0), 2 * n_out,
+                                 rounding_mode="floor"), n_in)
+    hi = torch.minimum(torch.div(c2 + 7 * n_out, 2 * n_out, rounding_mode="floor"), n_in)
+    return o, c2, lo, hi, n_out, inv
+
+
 def _upscale_coeff_matrix(in_size, out_size, in_max: int, out_max: int) -> torch.Tensor:
     """Float32 [..., out_max, in_max] normalized lanczos coefficients of a
     growing size, each tap's argument ``x - center + 0.5`` taken from
@@ -244,26 +266,41 @@ def _upscale_coeff_matrix(in_size, out_size, in_max: int, out_max: int) -> torch
     coefficient by up to ~90 units of 2^22 from Pillow's; this form stays
     within 2 (the lanczos fit's own error). Rows at or past ``out_size`` are
     zero; the weight sum adds the taps in index order, as K2 does."""
-    in_i = torch.as_tensor(in_size).to(torch.int64)
-    dev = in_i.device
-    out_i = torch.clamp(torch.as_tensor(out_size, device=dev).to(torch.int64), min=1)
-    col = (..., None, None)
-    n_in, n_out = in_i[col], out_i[col]
-    o = torch.arange(out_max, dtype=torch.int64, device=dev)[:, None]
-    x = torch.arange(in_max, dtype=torch.int64, device=dev)[None, :]
-    c2 = (2 * o + 1) * n_in  # 2 out * center
-    inv = _f32(1.0) / (2 * n_out).to(_F32)
+    o, c2, lo, hi, n_out, inv = _upscale_windows(in_size, out_size, out_max)
+    x = torch.arange(in_max, dtype=torch.int64, device=c2.device)[None, :]
     arg = ((2 * x + 1) * n_out - c2).to(_F32) * inv
-    lo = torch.minimum(torch.div((c2 - 5 * n_out).clamp(min=0), 2 * n_out,
-                                 rounding_mode="floor"), n_in)
-    hi = torch.minimum(torch.div(c2 + 7 * n_out, 2 * n_out, rounding_mode="floor"), n_in)
     w = _FILTERS["lanczos"](arg) * ((x >= lo) & (x < hi)).to(_F32)
-    wsum = torch.zeros(w.shape[:-1], dtype=_F32, device=dev)
+    wsum = torch.zeros(w.shape[:-1], dtype=_F32, device=c2.device)
     for tap in range(in_max):
         wsum = wsum + w[..., tap]
     wsum = wsum[..., None]
     w = w / torch.where(wsum != 0.0, wsum, _f32(1.0))
     return w * (o < n_out).to(_F32)
+
+
+#: taps of a growing size's window: hi - lo <= (12 out) / (2 out) = 6
+UPSCALE_TAPS = 6
+
+
+def upscale_tap_windows(in_size, out_size, out_max: int):
+    """A growing size's tables by window, in the exact-argument form of
+    :func:`_upscale_coeff_matrix` (the same integers, products, weight sum
+    and quantisation, with no [out, in] matrix): int64 ``lo`` and ``hi``
+    ``[..., out_max]`` (``hi == lo`` at or past ``out_size``) and the int32
+    coefficients of taps ``lo .. lo + 5`` ``[..., out_max, UPSCALE_TAPS]``,
+    zero from ``hi`` on. Scattered into ``[out_max, in]`` it equals
+    :func:`build_coeffs_v3` wherever the size grows; K2's table stage
+    (``csrc/fused_v3.cu``: v3_tables) writes these values."""
+    o, c2, lo, hi, n_out, inv = _upscale_windows(in_size, out_size, out_max)
+    hi = torch.where(o < n_out, hi, lo)
+    x = lo + torch.arange(UPSCALE_TAPS, dtype=torch.int64, device=c2.device)
+    arg = ((2 * x + 1) * n_out - c2).to(_F32) * inv
+    w = _FILTERS["lanczos"](arg) * (x < hi).to(_F32)
+    wsum = torch.zeros(w.shape[:-1], dtype=_F32, device=c2.device)
+    for tap in range(UPSCALE_TAPS):  # index order; taps past hi add zero
+        wsum = wsum + w[..., tap]
+    w = w / torch.where(wsum != 0.0, wsum, _f32(1.0))[..., None]
+    return lo[..., 0], hi[..., 0], quantize_coeffs(w)
 
 
 def build_coeffs_v3(in_size, out_size, in_max: int, out_max: int) -> torch.Tensor:

@@ -18,7 +18,8 @@ same names.
 
 Two kinds of count:
 
-* per kernel (``blend_bound``, ``k1_bound``, ``k2_bound``, ``k3_bound``):
+* per kernel (``blend_bound``, ``k1_bound``, ``k2_bound``, ``k3_bound``;
+  K2's launches alone ``k2_resample_bound``, ``k2_tables_bound``):
   what one kernel call's function requires on the arguments it is given,
   as ``bound`` folds it (the time, what bounds it, and whether the working
   set fits in L2, where a share is not an HBM share);
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from . import roofline_compute
-from .compose_kernels import _V3_SCRATCH_BYTES, _META_COLS, _round_up
+from .compose_kernels import _V3_ENTRY, _V3_SCRATCH_BYTES, _META_COLS, _round_up, _v3_table_axes
 from .compose_kernels import _static_window_extents as static_restore_windows
 from .compose_kernels import fused_canvas_pad_hw, fused_compose_reference, fused_v3_reference
 from .compose_kernels import window_extents
@@ -223,6 +224,33 @@ def k2_bound(plane, objs_p, meta, out_max_hw) -> dict:
                                               out_max_hw))
     nbytes = objs_p.numel() + 4 * meta.numel() + 8 * written
     return bound(nbytes, macs, roofline_compute.ALPHA_OVER_OPS * covered)
+
+
+def k2_resample_bound(objs_p, meta, out_max_hw) -> dict:
+    """Bound of K2's resample launch alone: its objects and meta read, each
+    valid placement's resized pixels written (4 B each, the scratch the
+    blend reads) and the resample's multiply-adds, as :func:`k2_bound`
+    counts them."""
+    m = meta.to(torch.int64)
+    ph, pw = objs_p.shape[3], objs_p.shape[4]
+    mh, mw = out_max_hw
+    in_h, in_w = m[..., 6].clamp(0, ph), m[..., 7].clamp(0, pw)
+    out_h, out_w = m[..., 8].clamp(0, mh), m[..., 9].clamp(0, mw)
+    valid = (m[..., 5] > 0).to(torch.int64)
+    resampled = valid * (m[..., 4] == 0).to(torch.int64)
+    macs = roofline_compute.resample_macs(build_coeffs_traced(in_w, out_w, pw, mw),
+                                          build_coeffs_traced(in_h, out_h, ph, mh),
+                                          in_h, out_w, resampled)
+    written = int((out_h * out_w * valid).sum())
+    return bound(objs_p.numel() + 4 * meta.numel() + 4 * written, macs)
+
+
+def k2_tables_bound(meta, obj_pad_hw, out_max_hw) -> dict:
+    """Bound of K2's table stage (a mixed launch's first): its meta read and
+    each entry the resample's tiles read written, 32 B a growing axis's
+    output position (``compose_kernels._v3_table_axes``)."""
+    entries = sum(int(w.sum()) for _, _, w in _v3_table_axes(meta, obj_pad_hw, out_max_hw))
+    return bound(4 * meta.numel() + 4 * _V3_ENTRY * entries)
 
 
 def k3_bound(plane, origins, extents) -> dict:

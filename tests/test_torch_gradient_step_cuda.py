@@ -1,6 +1,7 @@
-"""K3's gradient form and the gradient render step on the card, against
-their plain versions, tolerance 0 (both are integer-exact: K3 copies ramp
-values, K2 builds its tables with the plain version's op order).
+"""K3's gradient form, K2's table stage and mixed launches, and the
+gradient render step on the card, against their plain versions, tolerance
+0 (all are integer-exact: K3 copies ramp values, K2 builds its tables with
+the plain version's op order).
 
 Every test here is marked ``cuda`` and skips without a card:
 ``python -m pytest tests/test_torch_gradient_step_cuda.py -m cuda -q``.
@@ -12,6 +13,7 @@ import torch
 
 from image_transformation_tpu_torch.ops import compose_kernels as ck
 from image_transformation_tpu_torch.parallel import make_gradient_render_step
+from tests.test_torch_v3_tables import _campaign
 
 
 @pytest.fixture
@@ -97,29 +99,76 @@ def test_gradient_step_with_upscales_matches_the_cpu_step(cuda, horizontal):
 
 
 @pytest.mark.cuda
-def test_k2_at_the_uhd_cells_upscales_matches_plain_version(cuda):
-    """K2's exact-argument tables at the cell's own sizes: the bundle's four
-    cutouts at the largest of the 12 levels and at the smallest, on the
-    2160 x 3840 plane, K2 == its plain version byte for byte."""
+@pytest.mark.parametrize("level", range(12), ids=[f"level{i:02d}" for i in range(12)])
+def test_k2_at_the_uhd_cells_upscales_matches_plain_version(cuda, level):
+    """K2's exact-argument tables, built once per placement by its table
+    stage, at the cell's own sizes: the bundle's four cutouts at one of the
+    12 levels (level 0 the smallest, 2.92x; level 11 the largest, 5.85x) on
+    the 2160 x 3840 plane under the cell's envelope, K2 == its plain
+    version byte for byte."""
     from image_transformation_tpu_torch.core.bundle import load_bundle
 
     arrays = load_bundle("bench_torch/bundles/squarespace").to_arrays()
     H, W = 3840, 2160
     hw = arrays.obj_hw
-    bounds = [(round(h * 5.848394), round(w * 5.848394)) for h, w in hw.tolist()]
-    small = [(round(h * 2.924197), round(w * 2.924197)) for h, w in hw.tolist()]
-    boxes = np.zeros((2, len(hw), 4), np.int32)
-    for b, sizes in enumerate((bounds, small)):
-        for k, (h, w) in enumerate(sizes):
-            x, y = (W - w) // (k + 2), (H - h) // (k + 2)
-            boxes[b, k] = (x, y, x + w, y + h)
+    scale = 5.848394 * np.linspace(0.5, 1.0, 12)
+    bounds = [(round(h * scale[-1]), round(w * scale[-1])) for h, w in hw.tolist()]
+    sizes = [(round(h * scale[level]), round(w * scale[level])) for h, w in hw.tolist()]
+    boxes = np.zeros((1, len(hw), 4), np.int32)
+    for k, (h, w) in enumerate(sizes):
+        x, y = (W - w) // (k + 2), (H - h) // (k + 2)
+        boxes[0, k] = (x, y, x + w, y + h)
     objs_p = ck.planarize_objects(torch.from_numpy(arrays.objects[None]))
     env = (max(h for h, _ in bounds), max(w for _, w in bounds))
-    hw_b = np.broadcast_to(hw, (2, *hw.shape)).astype(np.int32)
+    hw_b = hw[None].astype(np.int32)
     want = ck.render_fused_v3_program(objs_p, hw_b, boxes, (H, W), 0x7f102030, env)
+    ck.reset_launch_counts()
     got = ck.render_fused_v3_program(objs_p.to(cuda), hw_b, torch.from_numpy(boxes).to(cuda),
                                      (H, W), 0x7f102030, env)
     torch.cuda.synchronize()
+    assert ck.LAUNCHES["fused_v3_tables"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["score916", "in_1", "out_in_plus_1", "in_at_pad",
+                                  "out_clamped", "dropped_and_same"])
+def test_k2_table_stage_matches_plain_version(cuda, case):
+    """The stage alone on the CPU tests' campaigns: every entry (taps, lo,
+    hi, and 0 where it writes nothing) == its plain version."""
+    meta, pad, env = _campaign(case)
+    want = ck.fused_v3_tables_reference(meta, pad, env)
+    got = ck.fused_v3_tables(meta.to(cuda), pad, env)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_k2_mixed_launch_with_a_growing_and_a_shrinking_axis_matches_plain_version(cuda):
+    """In a mixed launch (the envelope past the pad) placements that grow
+    on one axis and shrink on the other (tiles that load one axis's entries
+    and build the other's), grow on both, shrink on both, and a dropped and
+    a plain-copy placement, soft alpha: K2 == its plain version."""
+    rng = np.random.default_rng(5)
+    B, N, ph, pw = 3, 5, 48, 256
+    env = (200, 384)
+    objs = torch.from_numpy(rng.integers(0, 256, (1, N, 4, ph, pw), dtype=np.uint8))
+    meta = np.zeros((B, N, 10), np.int32)
+    #          in_h in_w out_h out_w (h grows & w shrinks, h shrinks & w grows, both grow,
+    #          both shrink, a plain copy)
+    sizes = [(40, 250, 190, 97), (47, 120, 31, 383), (13, 17, 150, 300), (48, 256, 20, 70),
+             (30, 60, 30, 60)]
+    for b in range(B):
+        for k, (ih, iw, oh, ow) in enumerate(sizes):
+            meta[b, k] = (128 * (k % 2), 8 * k, 3 * k, k, int(k == 4), int(b != 1 or k != 2),
+                          ih, iw, oh, ow)
+    meta = torch.from_numpy(meta)
+    plane = torch.from_numpy(_ints(rng, (B, 400, 640)))
+    want = ck.fused_v3_reference(plane.clone(), objs, meta, env)
+    ck.reset_launch_counts()
+    got = ck.fused_v3(plane.to(cuda), objs.to(cuda), meta.to(cuda), env)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fused_v3_tables"] == 1
     assert torch.equal(got.cpu(), want)
 
 
@@ -136,9 +185,15 @@ def test_k2_chunk_counter_counts_each_chunk_of_an_overflowing_batch(cuda):
     plane = torch.full((B, 8, 128), 7, dtype=torch.int32, device=cuda)
     objs_p = torch.zeros((1, N, 4, 8, 128), dtype=torch.uint8, device=cuda)
     meta = torch.zeros((B, N, 10), dtype=torch.int32, device=cuda)
+    assert ck._v3_chunk(B, N, *env, True) == chunk  # the table buffer fits beside it
     ck.reset_launch_counts()
     ck.fused_v3(plane, objs_p, meta, env)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["fused_v3"] == 1
     assert ck.LAUNCHES["fused_v3_chunks"] == -(-B // chunk) == 3
+    assert ck.LAUNCHES["fused_v3_tables"] == 3  # a mixed launch: one table stage a chunk
     assert bool((plane == 7).all())
+    # an envelope within the pad shrinks only: no table stage
+    ck.fused_v3(plane, objs_p, meta, (8, 128))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fused_v3_chunks"] == 4 and ck.LAUNCHES["fused_v3_tables"] == 3
