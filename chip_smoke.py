@@ -554,7 +554,8 @@ def phase_batched(smi: str):
     results = {}
 
     # K2 vs its plain version, on the inputs render_solid_fused_v3_program gives it
-    meta, env, (hp, wp) = ck._render_meta(objs_p, hw, boxes(0), (H, W), None, True, static)
+    geo = ck.render_geometry((H, W), objs_p.shape[3:], N, static, pipelined=True)
+    meta, env, (hp, wp) = geo.meta(hw, boxes(0)), geo.envelope, geo.pad
     base = torch.full((B, hp, wp), bg, dtype=torch.int32, device=device)
     out_k = ck.fused_v3(base.clone(), objs_p, meta, env)
     out_p = ck.fused_v3_reference(base.clone(), objs_p, meta, env)
@@ -580,8 +581,8 @@ def phase_batched(smi: str):
     del work_k, work_p
 
     # K3 vs its plain version: restore the windows of that render
-    static_win = ck._static_window_extents(static, env)
-    origins = ck._restore_meta_static(boxes(0), (H, W), (hp, wp), static_win)
+    static_win = geo.windows
+    origins = meta[..., :2].contiguous()
     extents = static_win
     got = ck.restore_windows(out_k.clone(), origins, extents, bg)
     want = ck.restore_windows_reference(out_k.clone(), origins, extents, bg)

@@ -20,16 +20,19 @@ the previous render's windows with the background, a solid colour or a
 :class:`GradientRamp`.
 
 - geometry and packing: :func:`window_extents`, :func:`fused_canvas_pad_hw`,
-  :func:`planarize_objects`, :func:`pack_rgba_scalar`, the meta functions;
+  :class:`RenderGeometry` (built by :func:`render_geometry`: a render's
+  envelope, plane and windows, and its meta), :func:`planarize_objects`,
+  :func:`pack_rgba_scalar`;
 - :func:`fused_v3` / :func:`fused_v3_reference`,
   :func:`restore_windows` / :func:`restore_windows_reference`;
+- :func:`render_fused_v3_step`, the one restore-then-compose code, which the
+  programs and ``parallel.sweep``'s render step run;
 - the programs: :func:`composite_batch_fused_v3`,
   :func:`render_fused_v3_program` and :func:`render_fused_v3_reuse_program`
   (either background), and their named forms
   :func:`render_solid_fused_v3_program`,
-  :func:`render_solid_fused_v3_reuse_program`,
-  :func:`render_gradient_fused_v3_program` (per-canvas colours) and
-  :func:`render_gradient_fused_v3_reuse_program`.
+  :func:`render_solid_fused_v3_reuse_program` and
+  :func:`render_gradient_fused_v3_program` (per-canvas colours).
 
 K4, the two-program hybrid (``csrc/window_blend.cu``; JAX :1029-1207,
 :1210-2084, :2144-2453): a plain-torch producer resizes every object into
@@ -442,12 +445,47 @@ def fused_canvas_pad_hw(canvas_hw: Tuple[int, int],
     return max(_round_up(canvas_hw[0], 8), MH), max(_round_up(canvas_hw[1], 128), MW)
 
 
-def _envelope(objs_p: torch.Tensor, out_max_hw) -> Tuple[int, int]:
-    """(mh_a, mw_a): the tile-aligned output envelope (default: the planar
-    objects' padded extent)."""
-    if out_max_hw is None:
-        out_max_hw = (objs_p.shape[3], objs_p.shape[4])
-    return _round_up(out_max_hw[0], 8), _round_up(out_max_hw[1], 128)
+class RenderGeometry(NamedTuple):
+    """Where a gen-3 render draws, decided once per render program or step
+    by :func:`render_geometry`: the tile-aligned output ``envelope``
+    (mh_a, mw_a), K2's scratch extent; the padded plane ``pad`` (hp, wp);
+    and ``windows``, each object's (h, w) window, which K2 draws in and K3
+    restores. With ``per_object`` the windows are each object's own (from
+    its bound), else the envelope's window for every object."""
+
+    canvas_hw: Tuple[int, int]
+    envelope: Tuple[int, int]
+    pad: Tuple[int, int]
+    windows: Tuple[Tuple[int, int], ...]
+    per_object: bool
+
+    def meta(self, obj_hw, boxes, device=None) -> torch.Tensor:
+        """The [B, N, 10] int32 meta of ``boxes`` (:func:`_fused_v3_meta`)
+        on ``device`` (default: the boxes'). Columns 0-1 are the windows'
+        origins, which the next reuse render restores."""
+        return _fused_v3_meta(obj_hw, _long(boxes, device), self.canvas_hw, self.pad,
+                              window_extents(self.envelope),
+                              self.windows if self.per_object else None)
+
+
+def render_geometry(canvas_hw: Tuple[int, int], out_hw: Tuple[int, int], n_objects: int,
+                    static_obj_hw: Sequence[Tuple[int, int]] | None = None,
+                    pipelined: bool = False) -> RenderGeometry:
+    """The :class:`RenderGeometry` of a render of ``n_objects`` objects whose
+    outputs fit ``out_hw`` (an ``out_max_hw``, or the planar objects' padded
+    extent) on a canvas of ``canvas_hw``. Per-object windows apply with
+    ``pipelined`` and ``static_obj_hw``, one (h, w) bound per object (the
+    JAX package's STATIC_WINDOWS default, compose_pallas.py:3809); a count
+    of bounds other than ``n_objects`` raises."""
+    if static_obj_hw is not None and len(static_obj_hw) != n_objects:
+        raise ValueError(f"static_obj_hw has {len(static_obj_hw)} entries for {n_objects} objects")
+    env = _round_up(int(out_hw[0]), 8), _round_up(int(out_hw[1]), 128)
+    per_object = bool(pipelined) and static_obj_hw is not None
+    windows = (_static_window_extents(static_obj_hw, env) if per_object
+               else (window_extents(env),) * n_objects)
+    h_c, w_c = (int(v) for v in canvas_hw)
+    return RenderGeometry((h_c, w_c), env, fused_canvas_pad_hw((h_c, w_c), env), windows,
+                          per_object)
 
 
 def planarize_objects(objs: torch.Tensor) -> torch.Tensor:
@@ -470,7 +508,8 @@ def pack_rgba_scalar(bg_rgba: Tuple[int, int, int, int]) -> int:
 class GradientRamp(NamedTuple):
     """The gradient background of a padded plane as one packed line:
     ``values`` int32 [wp] (``horizontal``: column x of every row takes
-    ``values[x]``) or [hp] (row y takes ``values[y]``)."""
+    ``values[x]``) or [hp] (row y takes ``values[y]``). A fresh render also
+    takes one line per canvas, [B, wp] or [B, hp]; K3 takes one line."""
 
     values: torch.Tensor
     horizontal: bool
@@ -498,9 +537,10 @@ def _packed_ramp(c1, c2, n: int, limit: int, device) -> torch.Tensor:
 def gradient_ramp(c1, c2, horizontal: bool, canvas_hw: Tuple[int, int],
                   pad_hw: Tuple[int, int], device) -> GradientRamp:
     """The :class:`GradientRamp` of the c1 -> c2 gradient (u8 RGB triples,
-    as ``ops.background.gradient_spec`` gives them) on a canvas padded to
-    ``pad_hw``: one packed line along the gradient's axis, the canvas's
-    pixels equal to the reference's fill_gradient and the pad at c2."""
+    as ``ops.background.gradient_spec`` gives them, or [B, 3] per canvas) on
+    a canvas padded to ``pad_hw``: one packed line along the gradient's
+    axis, the canvas's pixels equal to the reference's fill_gradient and the
+    pad at c2."""
     (H, W), (hp, wp) = canvas_hw, pad_hw
     n, limit = (wp, W) if horizontal else (hp, H)
     return GradientRamp(_packed_ramp(c1, c2, n, limit, device).contiguous(), bool(horizontal))
@@ -510,7 +550,7 @@ def _background_plane(bg: Background, B: int, hp: int, wp: int, device) -> torch
     """A fresh padded plane [B, hp, wp] of the background ``bg``."""
     if isinstance(bg, GradientRamp):
         line = bg.values.to(device)
-        line = line[None, None, :] if bg.horizontal else line[None, :, None]
+        line = line[..., None, :] if bg.horizontal else line[..., None]
         return line.expand(B, hp, wp).contiguous()
     return torch.full((B, hp, wp), bg, dtype=torch.int32, device=device)
 
@@ -678,22 +718,6 @@ def _fused_v3_meta(obj_hw, boxes, canvas_hw, pad_hw, window_hw, static_win=None)
     meta6 = _window_meta6(boxes, canvas_hw, (hp - cap_h, wp - cap_w), same)
     sizes = torch.stack([obj_hw[..., 0], obj_hw[..., 1], h, w], dim=-1)
     return torch.cat([meta6, sizes.to(torch.int32)], dim=-1).contiguous()
-
-
-def _restore_meta_static(boxes, canvas_hw, pad_hw, static_win):
-    """[B, N, 2] int32 (x, y) window origins for the per-object restore:
-    the gen-3 origin rule with each object's own extents as the cap."""
-    boxes = _long(boxes)
-    h_c, w_c = canvas_hw
-    hp, wp = pad_hw
-    caps = _device_table(tuple(static_win), torch.int64, boxes.device)
-    x1c = boxes[..., 0].clamp(0, w_c)
-    y1c = boxes[..., 1].clamp(0, h_c)
-    rs_x = torch.minimum(torch.div(x1c, 128, rounding_mode="floor") * 128,
-                         (wp - caps[:, 1])[None, :])
-    rs_y = torch.minimum(torch.div(y1c, 8, rounding_mode="floor") * 8,
-                         (hp - caps[:, 0])[None, :])
-    return torch.stack([rs_x, rs_y], dim=-1).to(torch.int32).contiguous()
 
 
 # ------------------------------ K2: gen-3 ------------------------------
@@ -1038,25 +1062,31 @@ def restore_windows(plane: torch.Tensor, origins: torch.Tensor,
 
 # ------------------------------ the programs ------------------------------
 
-def _static_hw(static_obj_hw, n: int):
-    if static_obj_hw is not None and len(static_obj_hw) != n:
-        raise ValueError(f"static_obj_hw has {len(static_obj_hw)} entries for {n} objects")
-    return static_obj_hw
-
-
-def _render_meta(objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw):
-    """(meta, (mh_a, mw_a), (hp, wp)) of a gen-3 render. Per-object window
-    caps apply with ``pipelined`` and ``static_obj_hw`` (the JAX package's
-    STATIC_WINDOWS default, compose_pallas.py:3809)."""
-    mh_a, mw_a = _envelope(objs_p, out_max_hw)
-    hp, wp = fused_canvas_pad_hw(canvas_hw, (mh_a, mw_a))
-    static_obj_hw = _static_hw(static_obj_hw, objs_p.shape[1])
-    use_sw = pipelined and static_obj_hw is not None
-    static_win = _static_window_extents(static_obj_hw, (mh_a, mw_a)) if use_sw else None
-    boxes = _long(boxes, objs_p.device)
-    meta = _fused_v3_meta(obj_hw, boxes, canvas_hw, (hp, wp),
-                          window_extents((mh_a, mw_a)), static_win)
-    return meta, (mh_a, mw_a), (hp, wp)
+def render_fused_v3_step(geometry: RenderGeometry, objs_p: torch.Tensor, obj_hw, boxes,
+                         bg: Background, prev=None):
+    """One batched gen-3 render in ``geometry``, the code that every render
+    program and ``parallel.sweep``'s render step run: the meta of
+    ``boxes``, then K2 on a fresh plane of the background ``bg`` (a packed
+    solid colour or a :class:`GradientRamp`); or, with ``prev`` = (plane,
+    meta) of the previous render in this geometry, K3 restores the windows
+    that meta drew (origins its columns 0-1, extents ``geometry.windows``)
+    from ``bg`` and K2 composes on that plane IN PLACE. Returns (plane,
+    meta), the pair the next reuse render takes as ``prev``."""
+    if not isinstance(bg, (int, np.integer, GradientRamp)):
+        raise TypeError(f"bg must be a packed colour or a GradientRamp, got {type(bg).__name__}")
+    if prev is not None and tuple(prev[0].shape[1:]) != geometry.pad:
+        raise ValueError(f"prev plane {tuple(prev[0].shape[1:])} != expected {geometry.pad}")
+    with span("itx.render.meta"):
+        meta = geometry.meta(obj_hw, boxes, objs_p.device)
+        origins = None if prev is None else prev[1][..., :2].contiguous()
+    if prev is None:
+        plane = _background_plane(bg, meta.shape[0], *geometry.pad, objs_p.device)
+        return fused_v3(plane, objs_p, meta, geometry.envelope), meta
+    plane = prev[0]
+    with span("itx.render.restore", plane.device):
+        restore_windows(plane, origins, geometry.windows, bg)
+    with span("itx.render.compose", plane.device):
+        return fused_v3(plane, objs_p, meta, geometry.envelope), meta
 
 
 def composite_batch_fused_v3(
@@ -1090,20 +1120,19 @@ def composite_batch_fused_v3(
     if padded_out and not packed_out:
         raise ValueError("padded_out requires packed_out")
     objs_p = objs if objs.shape[4] != 4 else planarize_objects(objs)
-    meta, env, (hp, wp) = _render_meta(
-        objs_p, obj_hw, boxes, (h_c, w_c), out_max_hw, pipelined, static_obj_hw
-    )
-    B = meta.shape[0]
+    geo = render_geometry((h_c, w_c), objs_p.shape[3:] if out_max_hw is None else out_max_hw,
+                          objs_p.shape[1], static_obj_hw, pipelined)
     if canvases is None:
-        plane = torch.full((B, hp, wp), pack_rgba_scalar(bg_rgba),
-                           dtype=torch.int32, device=objs_p.device)
+        plane, _ = render_fused_v3_step(geo, objs_p, obj_hw, boxes, pack_rgba_scalar(bg_rgba))
     else:
-        plane = torch.zeros((B, hp, wp), dtype=torch.int32, device=objs_p.device)
+        meta = geo.meta(obj_hw, boxes, objs_p.device)
+        B = meta.shape[0]
+        plane = torch.zeros((B, *geo.pad), dtype=torch.int32, device=objs_p.device)
         packed = canvases if canvases.dtype == torch.int32 else (
             canvases.contiguous().view(torch.int32).reshape(B, h_c, w_c)
         )
         plane[:, :h_c, :w_c] = packed
-    fused_v3(plane, objs_p, meta, env)
+        fused_v3(plane, objs_p, meta, geo.envelope)
     out = plane if padded_out else plane[:, :h_c, :w_c]
     return out if packed_out else packed_to_u8(out)
 
@@ -1126,12 +1155,9 @@ def render_fused_v3_program(
     shared ([1, N, ...]); the batch comes from ``boxes``. ``static_obj_hw``
     (with ``pipelined``) bounds each object's output size: a larger box
     renders at the size its window clamps it to."""
-    with span("itx.render.meta"):
-        meta, env, (hp, wp) = _render_meta(
-            objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw
-        )
-    plane = _background_plane(bg, meta.shape[0], hp, wp, objs_p.device)
-    return fused_v3(plane, objs_p, meta, env)
+    geo = render_geometry(canvas_hw, objs_p.shape[3:] if out_max_hw is None else out_max_hw,
+                          objs_p.shape[1], static_obj_hw, pipelined)
+    return render_fused_v3_step(geo, objs_p, obj_hw, boxes, bg)[0]
 
 
 def render_solid_fused_v3_program(
@@ -1163,46 +1189,27 @@ def render_fused_v3_reuse_program(
     pipelined: bool = False,
 ) -> torch.Tensor:
     """Framebuffer-reuse render (port of compose_pallas.py:4011): restore
-    the windows the previous render (``prev_boxes``) touched on ``prev_v``
+    the windows the previous render (``prev_boxes``) drew on ``prev_v``
     with K3, from the background ``bg`` (a packed solid colour or a
-    :class:`GradientRamp`), then compose ``boxes`` with K2.
+    :class:`GradientRamp`; anything else raises TypeError), then compose
+    ``boxes`` with K2.
 
     Where JAX donates ``prev_v``, the port restores and composes IN PLACE
     on the same tensor and returns it. ``prev_v`` must come from a render
-    with the same ``bg``, canvas, envelope and objects. With
-    ``static_obj_hw`` and B >= 2 each restore window has its object's own
-    extents; otherwise the batch-max window. ``static_obj_hw`` is a per-object
-    bound of the output size, which sizes both K2's window and the restore
-    window: a box larger than its bound renders at the size the window
-    clamps it to (another scale than the box's), so where boxes upscale,
-    pass bounds of the output sizes, not of the assets.
+    with the same ``bg``, canvas, envelope, objects and window settings:
+    the restore fills the windows that render drew, each object's own with
+    ``pipelined`` and ``static_obj_hw``, else the envelope's. (JAX restores
+    per-object windows wherever ``static_obj_hw`` is given and B >= 2, also
+    after a render that drew the envelope's.) ``static_obj_hw`` is a
+    per-object bound of the output size, which sizes both K2's window and
+    the restore window: a box larger than its bound renders at the size the
+    window clamps it to (another scale than the box's), so where boxes
+    upscale, pass bounds of the output sizes, not of the assets.
     """
-    mh_a, mw_a = _envelope(objs_p, out_max_hw)
-    MH, MW = window_extents((mh_a, mw_a))
-    hp, wp = fused_canvas_pad_hw(canvas_hw, (mh_a, mw_a))
-    if tuple(prev_v.shape[1:]) != (hp, wp):
-        raise ValueError(f"prev_v plane {tuple(prev_v.shape[1:])} != expected {(hp, wp)}")
-    N = objs_p.shape[1]
-    dev = prev_v.device
-    # both metas before either launch, so that one span holds the step's
-    # meta building (neither reads the plane)
-    with span("itx.render.meta"):
-        prev_boxes = _long(prev_boxes, dev)
-        if static_obj_hw is not None and prev_v.shape[0] >= 2:
-            static_win = _static_window_extents(_static_hw(static_obj_hw, N), (mh_a, mw_a))
-            origins = _restore_meta_static(prev_boxes, canvas_hw, (hp, wp), static_win)
-            extents = static_win
-        else:
-            origins = _fused_v3_meta(obj_hw, prev_boxes, canvas_hw, (hp, wp), (MH, MW))
-            origins = origins[..., :2].contiguous()
-            extents = ((MH, MW),) * N
-        meta, env, _ = _render_meta(
-            objs_p, obj_hw, boxes, canvas_hw, out_max_hw, pipelined, static_obj_hw
-        )
-    with span("itx.render.restore", dev):
-        restore_windows(prev_v, origins, extents, bg)
-    with span("itx.render.compose", dev):
-        return fused_v3(prev_v, objs_p, meta, env)
+    geo = render_geometry(canvas_hw, objs_p.shape[3:] if out_max_hw is None else out_max_hw,
+                          objs_p.shape[1], static_obj_hw, pipelined)
+    prev_meta = geo.meta(obj_hw, prev_boxes, prev_v.device)
+    return render_fused_v3_step(geo, objs_p, obj_hw, boxes, bg, (prev_v, prev_meta))[0]
 
 
 def render_solid_fused_v3_reuse_program(
@@ -1223,27 +1230,6 @@ def render_solid_fused_v3_reuse_program(
                                          int(bg_packed), out_max_hw, static_obj_hw, pipelined)
 
 
-def render_gradient_fused_v3_reuse_program(
-    prev_v: torch.Tensor,
-    prev_boxes,
-    objs_p: torch.Tensor,
-    obj_hw,
-    boxes,
-    canvas_hw: Tuple[int, int],
-    ramp: GradientRamp,
-    out_max_hw: Tuple[int, int] | None = None,
-    static_obj_hw: Sequence[Tuple[int, int]] | None = None,
-    pipelined: bool = False,
-) -> torch.Tensor:
-    """:func:`render_fused_v3_reuse_program` on a gradient background: K3
-    restores each window from ``ramp`` (:func:`gradient_ramp`, built once
-    for the plane, not per call)."""
-    if not isinstance(ramp, GradientRamp):
-        raise TypeError(f"ramp must be a GradientRamp, got {type(ramp).__name__}")
-    return render_fused_v3_reuse_program(prev_v, prev_boxes, objs_p, obj_hw, boxes, canvas_hw,
-                                         ramp, out_max_hw, static_obj_hw, pipelined)
-
-
 def render_gradient_fused_v3_program(
     objs_p: torch.Tensor,
     obj_hw,
@@ -1260,15 +1246,10 @@ def render_gradient_fused_v3_program(
     on the host, float32 lerp, truncating u8 cast, as the reference's
     fill_gradient) made as the packed plane, clamped at t = 1 in the pad,
     then K2. Returns the padded packed plane [B, hp, wp]."""
-    meta, env, (hp, wp) = _render_meta(
-        objs_p, obj_hw, boxes, canvas_hw, out_max_hw, False, static_obj_hw
-    )
-    H, W = canvas_hw
-    n, limit = (wp, W) if horizontal else (hp, H)
-    packed = _packed_ramp(c1, c2, n, limit, objs_p.device)
-    shape = (meta.shape[0], hp, wp)
-    plane = (packed[:, None, :] if horizontal else packed[:, :, None]).expand(shape)
-    return fused_v3(plane.contiguous(), objs_p, meta, env)
+    geo = render_geometry(canvas_hw, objs_p.shape[3:] if out_max_hw is None else out_max_hw,
+                          objs_p.shape[1], static_obj_hw)
+    ramp = gradient_ramp(c1, c2, horizontal, canvas_hw, geo.pad, objs_p.device)
+    return render_fused_v3_step(geo, objs_p, obj_hw, boxes, ramp)[0]
 
 
 # ------------------ K4: the two-program hybrid compose ------------------

@@ -33,15 +33,13 @@ from ..core.device import resolve_device
 from ..core.timing import span
 from ..ops.compose import composite_batch, composite_canvas_tables_indexed_many
 from ..ops.compose_kernels import (
-    Background,
     composite_batch_fused_v3,
-    fused_canvas_pad_hw,
     gradient_ramp,
     pack_rgba_scalar,
     packed_luma,
     planarize_objects,
-    render_fused_v3_program,
-    render_fused_v3_reuse_program,
+    render_fused_v3_step,
+    render_geometry,
     render_solid_fused_v3_program,
 )
 
@@ -114,14 +112,20 @@ batched_compose_step = make_batched_compose
 """Alias kept for the public parallel API."""
 
 
-def _render_step(canvas_hw, out_max_hw, bg: Background, out_bounds_hw, reuse: bool,
-                 stat: str, dev: torch.device):
-    """The batched render step on the background ``bg`` (a packed solid
-    colour or a gradient ramp of the padded plane): the core that
-    :func:`make_solid_render_step` and :func:`make_gradient_render_step`
-    share, so that the background is all that differs between them."""
+def _render_step(canvas_hw, out_max_hw, background, out_bounds_hw, reuse: bool, stat: str,
+                 dev: torch.device):
+    """The batched render step on the background that ``background(geometry)``
+    gives (a packed solid colour, or a gradient ramp of the geometry's
+    padded plane): the core that :func:`make_solid_render_step` and
+    :func:`make_gradient_render_step` share, so that the background is all
+    that differs between them. The render geometry is decided on the first
+    call (the envelope from its objects' shape where ``out_max_hw`` is None,
+    their count from it where there are no bounds) and kept: later calls
+    take objects of the same shape. Each reuse call restores the windows
+    the previous call's meta drew."""
     H, W = canvas_hw
-    state: List = [None]  # (plane, boxes) of the previous call
+    fixed: List = [None]  # (geometry, background), decided on the first call
+    state: List = [None]  # (plane, meta) of the previous call
 
     def run_stat(plane):
         if stat == "fence":
@@ -135,20 +139,16 @@ def _render_step(canvas_hw, out_max_hw, bg: Background, out_bounds_hw, reuse: bo
             objs_p = objs if objs.shape[4] != 4 else planarize_objects(objs)
             obj_hw = _on(obj_hw, dev)
             boxes = _on(boxes, dev)
+            if fixed[0] is None:
+                out_hw = objs_p.shape[3:] if out_max_hw is None else out_max_hw
+                geo = render_geometry((H, W), out_hw, objs_p.shape[1], out_bounds_hw,
+                                      pipelined=True)
+                fixed[0] = geo, background(geo)
+            geo, bg = fixed[0]
             with span("itx.render", dev):
-                if state[0] is None:
-                    plane = render_fused_v3_program(
-                        objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
-                        pipelined=True, static_obj_hw=out_bounds_hw,
-                    )
-                else:
-                    prev, prev_boxes = state[0]
-                    plane = render_fused_v3_reuse_program(
-                        prev, prev_boxes, objs_p, obj_hw, boxes, (H, W), bg, out_max_hw,
-                        static_obj_hw=out_bounds_hw, pipelined=True,
-                    )
+                plane, meta = render_fused_v3_step(geo, objs_p, obj_hw, boxes, bg, state[0])
             if reuse:
-                state[0] = (plane, boxes)
+                state[0] = (plane, meta)
             with span("itx.stat", dev):
                 return plane, run_stat(plane)
 
@@ -191,8 +191,9 @@ def make_solid_render_step(
     copies them; ``step.release()`` drops the kept plane.
     """
     _check_stat(stat)
-    return _render_step(canvas_hw, out_max_hw, pack_rgba_scalar(bg_rgba), static_obj_hw, reuse,
-                        stat, resolve_device(device))
+    bg = pack_rgba_scalar(bg_rgba)
+    return _render_step(canvas_hw, out_max_hw, lambda geo: bg, static_obj_hw, reuse, stat,
+                        resolve_device(device))
 
 
 def make_gradient_render_step(
@@ -208,8 +209,9 @@ def make_gradient_render_step(
     ``step.release()``) on the c1 -> c2 gradient ``gradient = (c1, c2,
     horizontal)``, as ``ops.background.gradient_spec`` gives it (the
     upstream fill_gradient). The gradient's packed line (:func:`
-    ops.compose_kernels.gradient_ramp`) is built once here; each reuse call
-    restores the previous call's windows from it (K3's ramp form).
+    ops.compose_kernels.gradient_ramp`) is built once, with the step's
+    geometry on its first call; each reuse call restores the previous
+    call's windows from it (K3's ramp form).
 
     ``out_bounds_hw``: per-object bounds (h, w) of the output sizes, one per
     object. Their maximum is K2's output envelope (its scratch and the
@@ -229,9 +231,9 @@ def make_gradient_render_step(
         raise ValueError(f"out_bounds_hw must be positive (h, w) pairs, got {out_bounds_hw}")
     envelope = (max(h for h, _ in bounds), max(w for _, w in bounds))
     c1, c2, horizontal = gradient
-    ramp = gradient_ramp(c1, c2, horizontal, canvas_hw, fused_canvas_pad_hw(canvas_hw, envelope),
-                         dev)
-    return _render_step(canvas_hw, envelope, ramp, bounds, reuse, stat, dev)
+    return _render_step(canvas_hw, envelope,
+                        lambda geo: gradient_ramp(c1, c2, horizontal, canvas_hw, geo.pad, dev),
+                        bounds, reuse, stat, dev)
 
 
 def _batch_mean(mesh: Mesh, luma: torch.Tensor, total: int) -> torch.Tensor:

@@ -37,15 +37,11 @@ from ..core.device import resolve_device
 from ..layout.solve import FlexProgram, solve_program
 from ..ops.compose import composite_canvas
 from ..ops.compose_kernels import (
-    _fused_v3_meta,
-    _round_up,
-    _static_hw,
-    fused_canvas_pad_hw,
     fused_v3,
     packed_luma_masked,
     packed_to_u8,
     planarize_objects,
-    window_extents,
+    render_geometry,
 )
 
 KERNELS = ("xla", "pallas")
@@ -148,7 +144,7 @@ def make_fused_render(
 
     ``kernel="pallas"`` composes with K2 on the packed plane K2's JAX
     counterpart takes: the object envelope rounded up to (8, 128), its
-    windows (``window_extents``) and plane (``fused_canvas_pad_hw``), which
+    windows and plane (``ops.compose_kernels.render_geometry``), which
     decide where each object's window is cut, and ONE shared planar copy
     of the objects ([1, N, 4, ph, pw]). ``static_obj_hw`` (pallas only,
     one (h, w) cover per object) is JAX's resample specialization, which
@@ -159,8 +155,8 @@ def make_fused_render(
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     h_max, w_max = canvas_max_hw
     padded_packed = _make_padded_canvas(background, gradient_horizontal, canvas_max_hw)
-    if static_obj_hw is not None:
-        _static_hw(static_obj_hw, prog.n_objects)
+    # static_obj_hw is checked here; the windows stay the envelope's
+    geo = render_geometry(canvas_max_hw, obj_pad_hw, prog.n_objects, static_obj_hw)
 
     def step(canvas_wh, bg, objs, obj_wh, obj_known):
         boxes, scales = solve_program(prog, canvas_wh, obj_wh, obj_known)
@@ -176,15 +172,12 @@ def make_fused_render(
     if kernel != "pallas":
         return step
 
-    mh_a = _round_up(obj_pad_hw[0], 8)
-    mw_a = _round_up(obj_pad_hw[1], 128)
-    MH, MW = window_extents((mh_a, mw_a))
-    hp, wp = fused_canvas_pad_hw((h_max, w_max), (mh_a, mw_a))
+    hp, wp = geo.pad
 
     def pallas_step(canvas_wh, bg, objs, obj_wh, obj_known):
         v = canvas_wh.shape[0]
         boxes, scales = solve_program(prog, canvas_wh, obj_wh, obj_known)
-        meta = _fused_v3_meta(obj_wh.flip(-1), boxes, (h_max, w_max), (hp, wp), (MH, MW))
+        meta = geo.meta(obj_wh.flip(-1), boxes)
         if background == "solid":
             plane = _pack_rgb(bg).expand(v, hp, wp).contiguous()
         else:
@@ -193,7 +186,7 @@ def make_fused_render(
             plane[:, :h_max, :w_max] = padded_packed(bg, canvas_wh)
         # ONE shared planar copy: K2 reads object row 0 for every variant
         objs_p = planarize_objects(objs[None])
-        fused_v3(plane, objs_p, meta, (mh_a, mw_a))
+        fused_v3(plane, objs_p, meta, geo.envelope)
         crop = plane[:, :h_max, :w_max]
         return packed_to_u8(crop), boxes, scales, packed_luma_masked(crop, canvas_wh)
 

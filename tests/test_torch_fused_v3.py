@@ -184,9 +184,13 @@ def test_input_conventions_agree():
 
 # (c) the reuse chain ---------------------------------------------------------
 
-def _reuse_case(seed_boxes, edge=False):
+def _reuse_case(seed_boxes, edge=False, B=2, past=False):
+    """Objects, sizes and box sets of a small reuse chain. ``edge``: set 3
+    is clamped against the bottom/right edges; ``past``: in set 2, object 1
+    (9 x 17) of canvas 0 takes a 20 x 60 box, past its size as a bound,
+    and the canvas's other objects lie below it."""
     rng = np.random.default_rng(5)
-    B, N, ph, pw = 2, 3, 24, 140
+    N, ph, pw = 3, 24, 140
     objs = rng.integers(0, 256, (B, N, ph, pw, 4), dtype=np.uint8)
     hw_row = np.array([[24, 140], [9, 17], [16, 130]], np.int32)
     for k in range(N):
@@ -209,28 +213,36 @@ def _reuse_case(seed_boxes, edge=False):
                 w2, h2 = min(max(1, int(w * s)), Wc), min(max(1, int(h * s)), Hc)
                 x1, y1 = r.integers(0, Wc - w2 + 1), r.integers(0, Hc - h2 + 1)
                 bx[b, k] = (x1, y1, x1 + w2, y1 + h2)
+        if past and seed == 2:  # the others at the bottom, clear of its window
+            bx[0] = [(0, 40, 140, 64), (150, 7, 210, 27), (0, 48, 130, 64)]
         return bx
 
     return objs, hw, hw_row, (Hc, Wc), [rboxes(s) for s in seed_boxes]
 
 
-@pytest.mark.parametrize("static", [False, True])
-def test_reuse_chain_equals_fresh_renders(static):
-    objs, hw, hw_row, canvas_hw, sets = _reuse_case([1, 2, 3, 1], edge=static)
+@pytest.mark.parametrize("static, B, pipelined", [
+    (False, 2, True), (True, 2, True), (True, 1, True), (True, 2, False),
+], ids=["False", "True", "True-B1", "True-unpipelined-past"])
+def test_reuse_chain_equals_fresh_renders(static, B, pipelined):
+    """Each reuse step equals a fresh render: at B = 1 with bounds, and
+    with bounds but not pipelined (batch-max windows) where a box runs past
+    its bound."""
+    objs, hw, hw_row, canvas_hw, sets = _reuse_case([1, 2, 3, 1], edge=static, B=B,
+                                                    past=not pipelined)
     static_hw = tuple((int(h), int(w)) for h, w in hw_row) if static else None
     op = ck.planarize_objects(torch.from_numpy(objs))
     bg = ck.pack_rgba_scalar((50, 60, 70, 255))
 
     def fresh(bx):
         return ck.render_solid_fused_v3_program(
-            op, hw, bx, canvas_hw, bg, pipelined=True, static_obj_hw=static_hw)
+            op, hw, bx, canvas_hw, bg, pipelined=pipelined, static_obj_hw=static_hw)
 
     plane = fresh(sets[0])
     first = plane.clone()
     for prev, cur in zip(sets, sets[1:]):
         out = ck.render_solid_fused_v3_reuse_program(
             plane, prev, op, hw, cur, canvas_hw, bg, static_obj_hw=static_hw,
-            pipelined=True)
+            pipelined=pipelined)
         assert out.data_ptr() == plane.data_ptr()  # in place
         assert torch.equal(out, fresh(cur))
     assert torch.equal(plane, first)  # back at the first box set
@@ -263,7 +275,10 @@ def test_restore_meta_and_windows_match_jax():
     assert pad == jcp.fused_canvas_pad_hw(canvas_hw, env)
     win = ck._static_window_extents(static_hw, env)
     assert win == jcp._static_window_extents(static_hw, env)
-    got = ck._restore_meta_static(torch.from_numpy(b1), canvas_hw, pad, win)
+    # the port restores the origins of the render's own meta: JAX's restore rule
+    geo = ck.render_geometry(canvas_hw, env, len(static_hw), static_hw, pipelined=True)
+    assert (geo.envelope, geo.pad, geo.windows) == (env, pad, win)
+    got = geo.meta(hw, torch.from_numpy(b1))[..., :2]
     ref = jcp._restore_meta_static(jnp.asarray(b1), canvas_hw, pad, win)
     assert np.array_equal(got.numpy(), np.asarray(ref))
     MH, MW = ck.window_extents(env)
@@ -387,7 +402,8 @@ def test_wrappers_reject_bad_arguments_and_count_no_cpu_launch():
     arrays = _arrays("audio_book")
     hw, boxes = _batch(arrays, 2, 120, 200, 1)
     op = ck.planarize_objects(torch.from_numpy(arrays.objects)[None])
-    meta, env, (hp, wp) = ck._render_meta(op, hw, boxes, (120, 200), None, False, None)
+    geo = ck.render_geometry((120, 200), op.shape[3:], op.shape[1])
+    meta, env, (hp, wp) = geo.meta(hw, boxes), geo.envelope, geo.pad
     plane = torch.zeros((2, hp, wp), dtype=torch.int32)
     ck.reset_launch_counts()
     ck.fused_v3(plane, op, meta, env)

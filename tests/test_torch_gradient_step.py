@@ -61,14 +61,14 @@ def _background(horizontal):
     return bg
 
 
-def _box_sets(seed, regime, steps=STEPS):
-    """int32 [steps, B, N, 4]: each object at a scale drawn from the regime's
-    range, the whole box inside the canvas."""
+def _box_sets(seed, regime, steps=STEPS, batch=B):
+    """int32 [steps, batch, N, 4]: each object at a scale drawn from the
+    regime's range, the whole box inside the canvas."""
     rng = np.random.default_rng(seed)
     lo, hi = SCALES[regime]
-    out = np.zeros((steps, B, len(OBJ_HW), 4), np.int32)
+    out = np.zeros((steps, batch, len(OBJ_HW), 4), np.int32)
     for i in range(steps):
-        for b in range(B):
+        for b in range(batch):
             for k, (h, w) in enumerate(OBJ_HW):
                 s = rng.uniform(lo, hi)
                 bw, bh = max(1, round(w * s)), max(1, round(h * s))
@@ -89,8 +89,8 @@ def _steps(horizontal, regime, stat, reuse=True):
                                      device="cpu")
 
 
-def _hw():
-    return np.broadcast_to(OBJ_HW, (B, *OBJ_HW.shape)).astype(np.int32)
+def _hw(batch=B):
+    return np.broadcast_to(OBJ_HW, (batch, *OBJ_HW.shape)).astype(np.int32)
 
 
 def _crop(plane, b):
@@ -101,23 +101,68 @@ def _objects_by_id(objs):
     return {k: np.ascontiguousarray(objs[0, k, :h, :w]) for k, (h, w) in enumerate(OBJ_HW)}
 
 
-@pytest.mark.parametrize("stat", ["luma", "fence"])
-@pytest.mark.parametrize("regime", ["down", "up"])
-@pytest.mark.parametrize("horizontal", [True, False], ids=["horizontal", "vertical"])
-def test_gradient_reuse_chain_equals_fresh_renders(horizontal, regime, stat):
-    objs, sets = _objects(1), _box_sets(2, regime)
+CHAIN_CASES = [
+    pytest.param(horizontal, regime, stat, B, id=f"{axis}-{regime}-{stat}")
+    for stat in ("luma", "fence") for regime in ("down", "up")
+    for horizontal, axis in ((True, "horizontal"), (False, "vertical"))
+] + [pytest.param(True, "down", "luma", 1, id="horizontal-down-luma-B1")]
+
+
+@pytest.mark.parametrize("horizontal, regime, stat, batch", CHAIN_CASES)
+def test_gradient_reuse_chain_equals_fresh_renders(horizontal, regime, stat, batch):
+    objs, sets, hw = _objects(1), _box_sets(2, regime, batch=batch), _hw(batch)
     step = _steps(horizontal, regime, stat)
     fresh = _steps(horizontal, regime, stat, reuse=False)
     objs_p = ck.planarize_objects(torch.from_numpy(objs))
-    first, _ = step(None, objs_p, _hw(), sets[0])
+    first, _ = step(None, objs_p, hw, sets[0])
     for bx in sets[1:]:
-        plane, st = step(None, objs_p, _hw(), bx)
+        plane, st = step(None, objs_p, hw, bx)
         assert plane.data_ptr() == first.data_ptr()  # restored and composed in place
-        want, want_st = fresh(None, objs, _hw(), bx)
+        want, want_st = fresh(None, objs, hw, bx)
         assert torch.equal(plane, want) and torch.equal(st, want_st)
     step.release()
-    plane, _ = step(None, objs_p, _hw(), sets[0])
+    plane, _ = step(None, objs_p, hw, sets[0])
     assert plane.data_ptr() != first.data_ptr()
+
+
+def test_the_step_decides_its_geometry_once_and_restores_the_meta_it_drew(monkeypatch):
+    """One geometry per step factory, over reuse calls and a release; each
+    reuse call's restore origins are columns 0-1 of the meta its previous
+    call gave K2, and its extents the per-object windows of the bounds."""
+    from image_transformation_tpu_torch.parallel import sweep
+
+    built, drawn, restored = [], [], []
+    build, fused, restore = sweep.render_geometry, ck.fused_v3, ck.restore_windows
+
+    def counted_build(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    def kept_fused(plane, objs_p, meta, env):
+        drawn.append(meta)
+        return fused(plane, objs_p, meta, env)
+
+    def kept_restore(plane, origins, extents, bg):
+        restored.append((origins, extents))
+        return restore(plane, origins, extents, bg)
+
+    monkeypatch.setattr(sweep, "render_geometry", counted_build)
+    monkeypatch.setattr(ck, "fused_v3", kept_fused)
+    monkeypatch.setattr(ck, "restore_windows", kept_restore)
+    objs, sets = _objects(1), _box_sets(2, "down")
+    step = _steps(True, "down", "fence")
+    for bx in [*sets, None, sets[0], sets[1]]:
+        if bx is None:
+            step.release()
+            continue
+        step(None, objs, _hw(), bx)
+    assert len(built) == 1 and len(drawn) == len(sets) + 2
+    windows = ck._static_window_extents(_bounds("down"), built[0].envelope)
+    assert built[0].windows == windows and built[0].per_object
+    pairs = [(drawn[i - 1], restored.pop(0)) for i in (1, 2, 3, 5)]  # call 4 is fresh
+    assert not restored
+    for prev_meta, (origins, extents) in pairs:
+        assert torch.equal(origins, prev_meta[..., :2]) and extents == windows
 
 
 def _chain_errors(horizontal, regime):
@@ -268,9 +313,9 @@ def test_gradient_step_checks_its_arguments():
         make_gradient_render_step((H, W), ((12, 20),), spec, stat="mean", device="cpu")
     with pytest.raises(ValueError):
         make_gradient_render_step((H, W), ((0, 20),), spec, device="cpu")
-    with pytest.raises(TypeError):
-        ck.render_gradient_fused_v3_reuse_program(
+    with pytest.raises(TypeError):  # an RGBA tuple is neither a packed colour nor a ramp
+        ck.render_fused_v3_reuse_program(
             torch.zeros((1, 96, 256), dtype=torch.int32), np.zeros((1, 1, 4)),
             ck.planarize_objects(torch.from_numpy(_objects(1)[:, :1])), np.array([[[12, 20]]]),
-            np.zeros((1, 1, 4)), (H, W), 123)
+            np.zeros((1, 1, 4)), (H, W), (1, 2, 3, 255))
     assert make_solid_render_step.__doc__ and "bounds" in make_solid_render_step.__doc__

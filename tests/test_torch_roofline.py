@@ -260,15 +260,15 @@ def test_k2_and_k3_bounds_count_the_step_inputs():
     objs_p = ck.planarize_objects(torch.from_numpy(arrays.objects)[None])
     B, N = boxes.shape[:2]
     hw = torch.from_numpy(np.broadcast_to(arrays.obj_hw, (B, N, 2)).copy())
-    meta, env, (hp, wp) = ck._render_meta(objs_p, hw, torch.from_numpy(boxes), CANVAS, None,
-                                          True, static)
+    geo = ck.render_geometry(CANVAS, objs_p.shape[3:], N, static, pipelined=True)
+    meta, env, (hp, wp) = geo.meta(hw, boxes), geo.envelope, geo.pad
     plane = torch.zeros((B, hp, wp), dtype=torch.int32)
     k2 = roofline.k2_bound(plane, objs_p, meta, env)
     written = roofline.alpha_pixels(ck.fused_v3_reference(plane.clone(), objs_p, meta, env))
     assert k2["bound_gbytes"] * 1e9 == objs_p.numel() + 4 * meta.numel() + 8 * written
     assert k2["l2_resident"] and k2["bound_gmacs"] > 0
-    ext = ck._static_window_extents(static, env)
-    origins = ck._restore_meta_static(torch.from_numpy(boxes), CANVAS, (hp, wp), ext)
+    ext = geo.windows
+    origins = meta[..., :2].contiguous()
     k3 = roofline.k3_bound(plane, origins, ext)
     assert k3["union_px"] <= k3["summed_px"]
     assert k3["bound_gbytes"] * 1e9 == 4 * k3["union_px"] + 4 * origins.numel()

@@ -90,8 +90,9 @@ def _kernel_times(prof, reps: int):
 
 def profile_k2(batch: int, smi: str, device) -> None:
     inp = Inputs(batch, device)
-    meta, env, (hp, wp) = ck._render_meta(
-        inp.objs_p, inp.hw, inp.boxes[0], HW, None, True, inp.static)
+    geo = ck.render_geometry(HW, inp.objs_p.shape[3:], inp.objs_p.shape[1], inp.static,
+                             pipelined=True)
+    meta, env, (hp, wp) = geo.meta(inp.hw, inp.boxes[0]), geo.envelope, geo.pad
     plane = torch.full((batch, hp, wp), inp.bg, dtype=torch.int32, device=device)
     ck.fused_v3(plane, inp.objs_p, meta, env)
     torch.cuda.synchronize()
@@ -155,12 +156,13 @@ def host_costs(batch: int, smi: str, device) -> None:
     """The K3 wrapper's host steps on the windows of a B=``batch`` render
     (per-object static windows, as chip_smoke.py's [batched] line)."""
     inp = Inputs(batch, device)
-    meta, env, (hp, wp) = ck._render_meta(
-        inp.objs_p, inp.hw, inp.boxes[0], HW, None, True, inp.static)
+    geo = ck.render_geometry(HW, inp.objs_p.shape[3:], inp.objs_p.shape[1], inp.static,
+                             pipelined=True)
+    meta, env, (hp, wp) = geo.meta(inp.hw, inp.boxes[0]), geo.envelope, geo.pad
     plane = torch.full((batch, hp, wp), inp.bg, dtype=torch.int32, device=device)
     ck.fused_v3(plane, inp.objs_p, meta, env)
-    win = ck._static_window_extents(inp.static, env)
-    origins = ck._restore_meta_static(inp.boxes[0], HW, (hp, wp), win)
+    win = geo.windows
+    origins = meta[..., :2].contiguous()
     steps = {
         "check": lambda: ck._check_restore_args(plane, origins, len(win)),
         "extents table (cached)": lambda: ck._restore_table(win, device),
