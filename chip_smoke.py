@@ -204,10 +204,11 @@ BATCH_HW = (1080, 1920)
 HYBRID_B = 64
 #: K1's and K2's launches per wrapper call: (label, a substring of the
 #: kernel's mangled name in ptxas's report, and of its name in a profiler
-#: trace); K2_PTXAS names the instance the solid renders launch
+#: trace); K2_PTXAS names the kernels the solid renders launch (the walk
+#: over the live tiles)
 K1_LAUNCHES = (("bounds", "k1_bounds"), ("resample", "k1_resample"), ("blend", "K1Rects"))
 K2_LAUNCHES = (("resample", "v3_resample"), ("blend", "V3Rects"))
-K2_PTXAS = (("resample", "v3_resampleILb0E"), ("blend", "V3Rects"))
+K2_PTXAS = (("resample", "v3_resampleILb0E"), ("blend", "box_blend_walk"))
 #: K4's launches per call, by a substring of the kernel's name in a profiler
 #: trace (any instantiation), and in ptxas's report (the instantiation the
 #: packed and the planar entries launch on the smoke's aligned tensors)
@@ -300,13 +301,15 @@ def phase_build():
 def launch_text(launches, dynamic_smem) -> str:
     """Each launch of a wrapper call with ptxas's registers, shared memory
     (static, and dynamic as launched) and spills, from this process's build
-    log (``phase_build``)."""
+    log (``phase_build``); a launch's key is a substring of the kernel's
+    mangled name, or a tuple of substrings it holds all of."""
     from image_transformation_tpu_torch.ops import _build
 
     usage = _build.ptxas_usage(_build.last_build_report)
     parts = []
     for (label, key), dyn in zip(launches, dynamic_smem):
-        found = [u for name, u in usage.items() if key in name]
+        keys = (key,) if isinstance(key, str) else key
+        found = [u for name, u in usage.items() if all(k in name for k in keys)]
         if not found:
             parts.append(f"{label} (no ptxas report: the library was built before)")
             continue
@@ -509,6 +512,38 @@ def _bound_text(r: dict) -> str:
             f"{', L2-resident' if r['l2_resident'] else ''})")
 
 
+def _k2_walk(meta, pad, env, device):
+    """K2's grids for one call over ``meta``'s batch, from the C entry
+    (``fused_v3_grid``, per chunk), beside the blocks a grid over the
+    envelope would take and the live tiles (a plain count over the meta,
+    after a synchronise): (dict, text)."""
+    import torch
+
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+
+    torch.cuda.synchronize()
+    B, N = meta.shape[:2]
+    chunk = ck._v3_chunk(B, N, *env, mixed=env[0] > pad[0] or env[1] > pad[1])
+    grids = [ck._v3_grid(min(chunk, B - b0), N, pad, env, device)
+             for b0 in range(0, B, chunk)]
+    r = dict(live_tiles=int(ck._v3_live_tiles(meta.cpu(), env).sum()),
+             envelope_blocks=B * N * -(-env[0] // 32) * -(-env[1] // 32),
+             resample_blocks=sum(g.resample_blocks for g in grids),
+             blend_blocks=sum(g.blend_blocks for g in grids),
+             walks=sum(g.resample_launches for g in grids), chunks=len(grids),
+             resample_resident=grids[0].resample_resident,
+             blend_resident=grids[0].blend_resident,
+             smem=(grids[0].resample_smem, grids[0].blend_smem))
+    text = (f"K2 grid a call: {r['chunks']} chunks in {r['walks']} resample launches over the "
+            f"live tiles; blocks launched: resample {r['resample_blocks']:,}, blend "
+            f"{r['blend_blocks']:,} (a grid over the envelope: {r['envelope_blocks']:,} each) "
+            f"for {r['live_tiles']:,} live tiles; "
+            f"resident blocks an SM: resample {r['resample_resident']}, blend "
+            f"{r['blend_resident']} ({torch.cuda.get_device_properties(device).multi_processor_count}"
+            f" SMs)")
+    return r, text
+
+
 def _scan_text(plane_shape, src, meta, bnd) -> str:
     """The bytes K4's bounds launch reads beside the launch's bound (not a
     measurement: counted from the inputs)."""
@@ -576,8 +611,10 @@ def phase_batched(smi: str):
           f"static windows: K2 == plain (max abs err {err}, {changed} pixels changed); "
           f"K2 {ms:.3f} ms ({raw[0]:.3f}, {raw[1]:.3f}), plain {plain_ms:.3f} ms "
           f"({raw[2]:.3f}, {raw[3]:.3f}), {_bound_text(results['fused_v3'])} on {smi}")
-    smem = ck.launch_smem("fused_v3", *objs_p.shape[3:], N)
-    print(f"[batched] K2 launches per call: {launch_text(K2_PTXAS, smem)}")
+    walk, walk_text = _k2_walk(meta, tuple(objs_p.shape[3:]), env, device)
+    results["fused_v3"]["walk"] = walk
+    print(f"[batched] {walk_text}")
+    print(f"[batched] K2 launches per call: {launch_text(K2_PTXAS, walk['smem'])}")
     del work_k, work_p
 
     # K3 vs its plain version: restore the windows of that render
@@ -632,7 +669,7 @@ def phase_batched(smi: str):
     )
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
-    for name in ("fused_v3", "restore_windows", "packed_luma"):
+    for name in ("fused_v3", "fused_v3_walks", "restore_windows", "packed_luma"):
         if launches[name] <= 0:
             raise AssertionError(f"[batched] the sweep launched {name} {launches[name]} times")
     r = sweep["ratios"]["16:9"]
@@ -641,8 +678,8 @@ def phase_batched(smi: str):
     print(f"[batched] throughput_sweep squarespace 16:9 {r['canvas'][0]}x{r['canvas'][1]} "
           f"B={r['batch']} pallas warmup 1 reps 5: {r['canvases_per_sec']:.1f} canvases/s "
           f"({r['seconds_per_batch'] * 1e3:.3f} ms per batch); launches K2 "
-          f"{launches['fused_v3']}, K3 {launches['restore_windows']}, luma "
-          f"{launches['packed_luma']} on {smi}")
+          f"{launches['fused_v3']} ({launches['fused_v3_walks']} resample walks), K3 "
+          f"{launches['restore_windows']}, luma {launches['packed_luma']} on {smi}")
     return results, launches, sweep
 
 
@@ -708,7 +745,7 @@ def phase_luma(smi: str) -> dict:
 #: table stage) and K3's ramp forms, by a substring of the kernel's mangled
 #: name in ptxas's report
 K2_MIXED_LAUNCHES = (("tables", "v3_tables"), ("resample", "v3_resampleILb1E"),
-                     ("blend", "V3Rects"))
+                     ("blend", "box_blend_walk"))
 K3_RAMP_LAUNCHES = {True: (("restore", "restore_kernelILi1E"),),  # ROW_RAMP
                     False: (("restore", "restore_kernelILi2E"),)}  # COL_RAMP
 #: the UHD cell's configuration and mix (squarespace_uhd.score916)
@@ -832,6 +869,7 @@ def phase_gradient(smi: str):
         want = {"restore_windows": UHD_REUSE_STEPS, "fused_v3": UHD_REUSE_STEPS,
                 "fused_v3_chunks": UHD_REUSE_STEPS * -(-B // chunk),
                 "fused_v3_tables": UHD_REUSE_STEPS * -(-B // chunk),
+                "fused_v3_walks": UHD_REUSE_STEPS * -(-B // chunk),
                 "packed_luma": UHD_REUSE_STEPS}
         if any(launches[k] != v for k, v in want.items()):
             raise AssertionError(f"{tag} {UHD_REUSE_STEPS} reuse steps launched {launches}, "
@@ -904,7 +942,10 @@ def phase_gradient(smi: str):
             rt = results["fused_v3_tables"] = dict(
                 max_abs_err=0, ms=part_ms["tables"], plain_ms=tables_plain_ms,
                 **k2_tables_bound(meta, pad, env))
-            smem = ck.launch_smem("fused_v3", *pad, N)
+            walk, walk_text = _k2_walk(meta, pad, env, device)
+            r2["walk"] = walk
+            smem = walk["smem"]
+            print(f"{tag} {walk_text}")
             print(f"{tag} K2 (MIXED: envelope {tuple(env)} past the pad "
                   f"{pad}) B={B} in {-(-B // chunk)} chunks of {chunk}: "
                   f"K2 == plain (max abs err {err}); K2 {r2['ms']:.4f} ms ({ms:.4f}, {ms2:.4f}), "
@@ -919,13 +960,14 @@ def phase_gradient(smi: str):
                   f"{part_ms['blend']:.4f} ms), {_bound_text(rr)}, share of the bound "
                   f"{rr['bound_ms'] / max(rr['ms'], 1e-9):.4f}; plain version: K2's, above")
             print(f"{tag} ptxas: {launch_text(K2_PTXAS[:1], smem[:1])} (v3_resample<false>); "
-                  f"{launch_text(K2_MIXED_LAUNCHES[:2], (0, smem[0]))}")
+                  f"{launch_text(K2_MIXED_LAUNCHES, (0, *smem))}")
         else:
             print(f"{tag} K2 (MIXED) == plain (max abs err {err}, {plain_ms:.1f} ms plain)")
         print(f"{tag} reuse chain: {UHD_REUSE_STEPS} reuse steps == a fresh render; launches "
               f"around them: K3 {launches['restore_windows']}, K2 {launches['fused_v3']} calls "
               f"in {launches['fused_v3_chunks']} chunks, fused_v3_tables "
-              f"{launches['fused_v3_tables']}, luma {launches['packed_luma']}")
+              f"{launches['fused_v3_tables']}, fused_v3_walks {launches['fused_v3_walks']}, "
+              f"luma {launches['packed_luma']}")
         for k, v in launches.items():
             counts[k] = counts.get(k, 0) + v
         step.release()

@@ -21,13 +21,22 @@
 // resample passes on each window's taps (bound by operations), and the f32
 // table arithmetic (a degree-12 Horner and a divide per tap). What the
 // design does about it, in two launches (three in a mixed launch):
-// - resample (csrc/resample.cuh), one block per placement and 32x32 output
-//   tile: each block builds its 32 columns' and 32 rows' windows, weight
+// - the grid: both kernels walk only the live 32x32 tiles of the launch
+//   (csrc/live_tiles.cuh), a persistent grid of the SMs times the blocks an
+//   SM holds, where a placement's share of the envelope is small (the UHD
+//   cell's logo, text and CTA beside its photo: 75% of the blocks of a
+//   grid over the envelope would exit at once); the
+//   resample's blocks claim tiles one at a time, since its tiles' costs
+//   differ. A launch of more placements than the walk's prefix (4 bytes a
+//   placement) fits beside a kernel's shared memory without lowering its
+//   blocks an SM runs as several launches over ranges of placements;
+// - resample (csrc/resample.cuh), one 32x32 output tile of a placement at a
+//   time: a block builds its 32 columns' and 32 rows' windows, weight
 //   sums and quantized taps once, into compact [rows][taps] arrays in
 //   shared memory (each tap's coefficient is computed once per tile; where
 //   objects are padded so large that the arrays do not fit beside the
-//   core, ph + pw > 7,456, each tap is computed where it is used
-//   instead, slower but with no size limit); each
+//   core and the walk's prefix, ph + pw > 7,455, each tap is computed
+//   where it is used instead, slower but with no size limit); each
 //   output column and row then walks only its own window; the
 //   source patch is staged premultiplied in shared memory, four pixels of
 //   the four planes (16 bytes) per thread, and the H result stays in shared
@@ -52,7 +61,7 @@
 //   grows loads its 32 entries with 16-byte loads instead of rebuilding
 //   them (the build was 52% of an upscale tile's cycles at the UHD cell's
 //   shapes). A shrinking axis keeps the per-tile build;
-// - blend (csrc/box_blend.cuh): over each placement's box only, z-order by
+// - blend (csrc/box_blend.cuh): over each placement's live tiles only, z-order by
 //   the last covering placement (Hopper runs blocks in no order and the
 //   windows of one canvas overlap), the canvas's boxes staged in shared
 //   memory;
@@ -74,6 +83,7 @@
 #include <cuda_runtime.h>
 
 #include "box_blend.cuh"
+#include "live_tiles.cuh"
 #include "pillow.cuh"
 #include "resample.cuh"
 
@@ -309,15 +319,16 @@ struct V3Taps {
   }
 };
 
-// The tables and the resample of one tile of a placement that is neither
-// dropped nor a plain copy; `win`, `center` and `wsum` in shared memory.
+// The tables and the resample of one tile (ox0, oy0) of a placement that
+// is neither dropped nor a plain copy, into `dst` (in shared memory, read
+// after the passes); `win`, `center` and `wsum` in shared memory.
 // `entries` is the placement's table-stage entries (columns, then rows, at
 // ceil_tile(mw)), null where the launch has none.
 template <bool MIXED>
 __device__ __forceinline__ void resample_placement_tile(
-    const resample::PlanarSrc& src, uchar4* out, const Meta& m, int ox0, int oy0, int mw,
-    int cap_h, int cap_v, resample::TileWindows& win, float* center, float* wsum,
-    const TapEntry* entries) {
+    const resample::PlanarSrc& src, const resample::TileDst& dst, const Meta& m, int ox0,
+    int oy0, int mw, int cap_h, int cap_v, resample::TileWindows& win, float* center,
+    float* wsum, const TapEntry* entries) {
   extern __shared__ uint32_t smem[];
   int* coef = reinterpret_cast<int*>(smem + resample::TILE_SMEM_BYTES / 4);
   const V3Taps<MIXED> taps{axis_params<MIXED>(m.in_w, m.out_w),
@@ -329,10 +340,9 @@ __device__ __forceinline__ void resample_placement_tile(
       taps.prepare(win, ox0, oy0, m.out_w, m.out_h, coef, coef + cap_h, cap_h, cap_v, th, tv);
   __syncthreads();
   if (staged) {
-    resample::resample_tile(src, resample::SharedTaps{coef, coef + cap_h, &win}, win, smem, out,
-                            mw, m.out_h, m.out_w, ox0, oy0);
+    resample::resample_tile(src, resample::SharedTaps{coef, coef + cap_h, &win}, win, smem, dst);
   } else {
-    resample::resample_tile(src, taps, win, smem, out, mw, m.out_h, m.out_w, ox0, oy0);
+    resample::resample_tile(src, taps, win, smem, dst);
   }
 }
 
@@ -366,40 +376,8 @@ v3_tables(const int* __restrict__ meta, TapEntry* __restrict__ tables, int ph, i
   e->b = make_int4(t[4], t[5], r.lo, r.hi);
 }
 
-// (1) grid (B*N, ceil(mw/TX), ceil(mh/TY)): one tile of one placement,
-// resampled into res (or the object's own pixels where `same` is set); with
-// MIXED the growing axes' tables take the exact-argument form, loaded from
-// `tables` (the stage's buffer) where it is not null.
-template <bool MIXED>
-__global__ void __launch_bounds__(resample::THREADS, 3)
-v3_resample(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
-            uchar4* __restrict__ res, const TapEntry* __restrict__ tables, int Bo, int N, int ph,
-            int pw, int mh, int mw, int cap_h, int cap_v, int vec) {
-  const int bk = blockIdx.x;
-  const Meta m = load_meta(meta, bk, ph, pw, mh, mw);
-  const int ox0 = blockIdx.y * resample::TX, oy0 = blockIdx.z * resample::TY;
-  if (m.valid <= 0 || ox0 >= m.out_w || oy0 >= m.out_h) return;  // uniform
-  const int b = bk / N, k = bk - b * N;
-  const size_t plane = (size_t)ph * pw;
-  const resample::PlanarSrc src{objects, ((size_t)(Bo == 1 ? 0 : b) * N + k) * 4 * plane,
-                                plane, pw, vec != 0};
-  uchar4* out = res + (size_t)bk * mh * mw;
-  if (m.same > 0) {  // Pillow's plain copy: out == in
-    resample::copy_tile(src, out, mw, ph, pw, m.out_h, m.out_w, ox0, oy0);
-    return;
-  }
-  __shared__ resample::TileWindows win;
-  __shared__ float center[resample::TX + resample::TY], wsum[resample::TX + resample::TY];
-  const TapEntry* entries =
-      MIXED && tables != nullptr
-          ? tables + (size_t)bk * (ceil_tile(mw) + ceil_tile(mh))
-          : nullptr;
-  resample_placement_tile<MIXED>(src, out, m, ox0, oy0, mw, cap_h, cap_v, win, center, wsum,
-                                 entries);
-}
-
 // K2's placement rectangles, from the meta: the box at its origin, 0 when
-// the placement is not valid.
+// the placement is not valid. Its (w, h) are the resample's extent too.
 struct V3Rects {
   const int* __restrict__ meta;
   int mh, mw;
@@ -411,9 +389,136 @@ struct V3Rects {
   }
 };
 
+// (1) the resample of one live placement's tiles, walked (a persistent
+// grid, csrc/live_tiles.cuh) over the live tiles of placements p0 .. p0+n-1
+// of the launch's B*N; each tile goes into res (or takes the object's own
+// pixels where `same` is set); with MIXED the growing axes' tables take the
+// exact-argument form, loaded from `tables` (the stage's buffer) where it
+// is not null. The prefix lies in dynamic shared memory after the core and
+// the tap arrays. Its tiles differ in cost (a tile's source patch grows
+// with the downscale), so blocks claim them one at a time from the counter
+// `claims` rather than by a fixed stride: a stride left blocks with unequal
+// work (on an H100, score1080's resample ran 8% slower than a grid of one
+// block per envelope tile, whose blocks the hardware hands out as slots
+// free). The block's next flat tile, its cursor and the tile's output live
+// in shared memory, not in registers through the tile's passes (the core
+// holds 80 a thread); the next claim is made as a tile starts, so its
+// latency hides behind it.
+template <bool MIXED>
+__global__ void __launch_bounds__(resample::THREADS, 3)
+v3_resample(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
+            uchar4* __restrict__ res, const TapEntry* __restrict__ tables, int Bo, int N, int ph,
+            int pw, int mh, int mw, int cap_h, int cap_v, int vec, int p0, int n,
+            int* __restrict__ claims) {
+  extern __shared__ uint32_t smem[];
+  __shared__ int s_warp[resample::WARPS];
+  __shared__ resample::TileWindows win;
+  __shared__ float center[resample::TX + resample::TY], wsum[resample::TX + resample::TY];
+  __shared__ resample::TileDst s_dst;
+  __shared__ int s_walk[2];
+  int* prefix = reinterpret_cast<int*>(smem + resample::TILE_SMEM_BYTES / 4 + cap_h + cap_v);
+  if (threadIdx.x == 0) s_walk[0] = atomicAdd(claims, 1), s_walk[1] = 0;
+  live_tiles::build_prefix<resample::THREADS>(prefix, p0, n, V3Rects{meta, mh, mw}, s_warp);
+  for (;;) {
+    const int t = s_walk[0];
+    if (t >= prefix[n]) break;  // uniform
+    const int i = live_tiles::advance(prefix, n, s_walk[1], t);
+    const int local = t - prefix[i], bk = p0 + i;
+    __syncthreads();  // every thread has read s_walk
+    const Meta m = load_meta(meta, bk, ph, pw, mh, mw);
+    const int ntx = (m.out_w + resample::TX - 1) / resample::TX, ty = local / ntx;
+    const int ox0 = (local - ty * ntx) * resample::TX, oy0 = ty * resample::TY;
+    const int b = bk / N, k = bk - b * N;
+    const size_t plane = (size_t)ph * pw;
+    const resample::PlanarSrc src{objects, ((size_t)(Bo == 1 ? 0 : b) * N + k) * 4 * plane,
+                                  plane, pw, vec != 0};
+    uchar4* out = res + (size_t)bk * mh * mw;
+    if (threadIdx.x == 0) {
+      s_walk[0] = atomicAdd(claims, 1), s_walk[1] = i;
+      // the passes' output: the tile's first pixel and its extent left from there
+      s_dst = resample::TileDst{out + (size_t)oy0 * mw + ox0, mw, m.out_h - oy0, m.out_w - ox0,
+                                0, 0};
+    }
+    if (m.same > 0) {  // Pillow's plain copy: out == in
+      resample::copy_tile(src, out, mw, ph, pw, m.out_h, m.out_w, ox0, oy0);
+    } else {
+      const TapEntry* entries =
+          MIXED && tables != nullptr ? tables + (size_t)bk * (ceil_tile(mw) + ceil_tile(mh))
+                                     : nullptr;
+      // s_dst is read after the tile's barriers
+      resample_placement_tile<MIXED>(src, s_dst, m, ox0, oy0, mw, cap_h, cap_v, win, center,
+                                     wsum, entries);
+    }
+    __syncthreads();  // s_walk's and s_dst's updates are seen (a plain copy has no barrier)
+  }
+  if (threadIdx.x == 0) live_tiles::finish(claims);
+}
+
+// The walk's launches for placements of N a canvas, objects padded to
+// (ph, pw), envelope (mh, mw), on the current device: for the resample
+// [0] and the blend [1], the most placements a launch walks, the resident
+// blocks an SM, the blocks a launch (the SMs times those, or fewer where
+// the launch has fewer envelope tiles) and the dynamic shared memory
+// before the prefix.
+struct V3Grid {
+  int cap[2], resident[2], sms, base[2];
+  long long env_tiles;  // envelope tiles a placement
+
+  // blocks of a launch of kernel i over n placements
+  unsigned blocks(int i, int n) const {
+    const long long full = (long long)sms * resident[i], env = env_tiles * n;
+    return (unsigned)(env < full ? env : full);
+  }
+};
+
+// The flat tile indices of a launch stay below 2^30 (an int with room for
+// the claims past the total).
+constexpr long long MAX_WALK_TILES = 1LL << 30;
+
+// The resample's compact tap arrays (resample::tap_caps) where they leave
+// room for the prefix of one placement, else none (every tile computes its
+// taps where it uses them); returns the dynamic shared memory before the
+// prefix.
+int v3_tap_caps(int ph, int pw, int* cap_h, int* cap_v) {
+  const int smem = resample::tap_caps(ph, pw, cap_h, cap_v);
+  if (smem + 8 <= resample::MAX_DYNAMIC_SMEM) return smem;
+  *cap_h = *cap_v = 0;
+  return resample::TILE_SMEM_BYTES;
+}
+
+cudaError_t v3_grid(int N, int ph, int pw, int mh, int mw, V3Grid* g) {
+  const bool mixed = mh > ph || mw > pw;
+  int cap_h, cap_v;
+  g->base[0] = v3_tap_caps(ph, pw, &cap_h, &cap_v);
+  g->base[1] = box_blend::smem_bytes(N);
+  g->env_tiles =
+      (long long)((mw + resample::TX - 1) / resample::TX) * ((mh + resample::TY - 1) / resample::TY);
+  if (g->env_tiles > MAX_WALK_TILES) return cudaErrorInvalidValue;
+  // the prefix may take what the kernels' shared memory leaves
+  const void* kernels[2] = {mixed ? (const void*)v3_resample<true> : (const void*)v3_resample<false>,
+                            (const void*)box_blend::box_blend_walk<V3Rects>};
+  cudaError_t err = mixed ? resample::allow_smem<1>(v3_resample<true>, resample::MAX_DYNAMIC_SMEM)
+                          : resample::allow_smem<0>(v3_resample<false>, resample::MAX_DYNAMIC_SMEM);
+  if (err == cudaSuccess) {
+    err = resample::allow_smem(box_blend::box_blend_walk<V3Rects>, resample::MAX_DYNAMIC_SMEM);
+  }
+  const int threads[2] = {resample::THREADS, box_blend::THREADS};
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+    live_tiles::Fit f;
+    err = live_tiles::fit(kernels[i], threads[i], g->base[i], resample::MAX_DYNAMIC_SMEM, &f);
+    const long long most = MAX_WALK_TILES / g->env_tiles;
+    g->cap[i] = f.cap < most ? f.cap : (int)most;
+    g->resident[i] = f.resident;
+    g->sms = f.sms;
+  }
+  return err;
+}
+
 }  // namespace
 
-static_assert(resample::TX == resample::TY, "one tile rounding for both axes");
+static_assert(resample::TX == resample::TY && box_blend::TILE == resample::TX &&
+                  live_tiles::TILE == resample::TX,
+              "one 32 x 32 tile for both axes, both kernels and the walk");
 
 // K2's table stage alone (for a mixed launch; also the card tests' entry):
 // writes `tables` [B*N, ceil_tile(mw) + ceil_tile(mh)] entries.
@@ -427,17 +532,25 @@ extern "C" int fused_v3_tables_launch(const void* meta, void* tables, int B, int
 }
 
 // Launches K2's kernels for B canvases (one chunk of the wrapper's batch):
-// in a mixed launch, given `tables`, the table stage, then the resample and
-// the blend; pointers are already offset to the chunk.
+// in a mixed launch, given `tables`, the table stage, then the resample
+// and the blend, each walking the live tiles of at most its cap of
+// placements a launch (V3Grid), so a chunk of more placements launches
+// each kernel over consecutive ranges of them: every resample before the
+// first blend, since a pixel's blend reads the resampled pixels of every
+// placement of its canvas under it. `claims` is the resample's counter,
+// two ints that are zero and that no launch on another stream uses at the
+// same time; `walks` gets the resample's launches. Pointers are already
+// offset to the chunk.
 extern "C" int fused_v3_launch(void* plane, const void* objects, const void* meta, void* res,
-                               void* tables, int B, int Bo, int N, int hp, int wp, int ph,
-                               int pw, int mh, int mw, void* stream) {
+                               void* tables, int* claims, int B, int Bo, int N, int hp, int wp,
+                               int ph, int pw, int mh, int mw, void* stream, int* walks) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned bn = (unsigned)B * (unsigned)N;
+  *walks = 0;
+  const long long bn = (long long)B * N;
   // the compact tap arrays where they fit beside the core (else caps 0: every
   // tile computes its taps where it uses them)
   int cap_h, cap_v;
-  const int smem = resample::tap_caps(ph, pw, &cap_h, &cap_v);
+  v3_tap_caps(ph, pw, &cap_h, &cap_v);
   // an envelope past the objects' padded extent: the launch's growing axes
   // take the exact-argument form (ops/resize.py:build_coeffs_v3)
   const bool mixed = mh > ph || mw > pw;
@@ -447,31 +560,52 @@ extern "C" int fused_v3_launch(void* plane, const void* objects, const void* met
     err = (cudaError_t)fused_v3_tables_launch(meta, tables, B, N, ph, pw, mh, mw, stream);
     if (err != cudaSuccess) return (int)err;
   }
-  const auto kernel = mixed ? v3_resample<true> : v3_resample<false>;
-  err = mixed ? resample::allow_smem<1>(kernel, smem) : resample::allow_smem<0>(kernel, smem);
+  V3Grid g;
+  err = v3_grid(N, ph, pw, mh, mw, &g);
   if (err != cudaSuccess) return (int)err;
   const int vec = ((size_t)ph * pw) % 4 == 0 && reinterpret_cast<uintptr_t>(objects) % 4 == 0;
-  const dim3 grid_r(bn, (mw + resample::TX - 1) / resample::TX,
-                    (mh + resample::TY - 1) / resample::TY);
-  kernel<<<grid_r, resample::THREADS, smem, s>>>(
-      static_cast<const uint8_t*>(objects), static_cast<const int*>(meta),
-      static_cast<uchar4*>(res), static_cast<const TapEntry*>(tables), Bo, N, ph, pw, mh, mw,
-      cap_h, cap_v, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_b(bn, (mw + box_blend::TILE - 1) / box_blend::TILE,
-                    (mh + box_blend::TILE - 1) / box_blend::TILE);
-  box_blend::box_blend_kernel<<<grid_b, box_blend::THREADS, box_blend::smem_bytes(N), s>>>(
-      static_cast<uchar4*>(plane), static_cast<const uchar4*>(res),
-      V3Rects{static_cast<const int*>(meta), mh, mw}, N, hp, wp, mh, mw);
-  return (int)cudaGetLastError();
+  const auto* obj = static_cast<const uint8_t*>(objects);
+  const auto* m = static_cast<const int*>(meta);
+  auto* r = static_cast<uchar4*>(res);
+  const auto* tab = static_cast<const TapEntry*>(tables);
+  const auto resample_kernel = mixed ? v3_resample<true> : v3_resample<false>;
+  for (long long p0 = 0; p0 < bn; p0 += g.cap[0]) {
+    const int n = (int)(bn - p0 < g.cap[0] ? bn - p0 : g.cap[0]);
+    resample_kernel<<<g.blocks(0, n), resample::THREADS, g.base[0] + 4 * (n + 1), s>>>(
+        obj, m, r, tab, Bo, N, ph, pw, mh, mw, cap_h, cap_v, vec, (int)p0, n, claims);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*walks;
+  }
+  for (long long p0 = 0; p0 < bn; p0 += g.cap[1]) {
+    const int n = (int)(bn - p0 < g.cap[1] ? bn - p0 : g.cap[1]);
+    box_blend::box_blend_walk<<<g.blocks(1, n), box_blend::THREADS, g.base[1] + 4 * (n + 1), s>>>(
+        static_cast<uchar4*>(plane), r, V3Rects{m, mh, mw}, N, hp, wp, mh, mw, (int)p0, n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
-// dynamic shared memory of K2's resample and blend launches, for objects
-// padded to (ph, pw) and N per canvas (the table stage takes none)
-extern "C" int fused_v3_smem(int ph, int pw, int N, int* out) {
-  int cap_h, cap_v;
-  out[0] = resample::tap_caps(ph, pw, &cap_h, &cap_v);
-  out[1] = box_blend::smem_bytes(N);
+// The launches fused_v3_launch makes for B canvases of N placements,
+// objects padded to (ph, pw), envelope (mh, mw), on the current device:
+// for the resample (out[5 * i], i = 0) and the blend (i = 1), the
+// launches, the most placements a launch walks, the blocks of all the
+// launches, the resident blocks an SM and the first launch's dynamic
+// shared memory. Returns the CUDA error.
+extern "C" int fused_v3_grid(int B, int N, int ph, int pw, int mh, int mw, long long* out) {
+  V3Grid g;
+  const cudaError_t err = v3_grid(N, ph, pw, mh, mw, &g);
+  if (err != cudaSuccess) return (int)err;
+  const long long bn = (long long)B * N;
+  for (int i = 0; i < 2; ++i) {
+    long long launches = 0, blocks = 0;
+    for (long long p0 = 0; p0 < bn; p0 += g.cap[i], ++launches) {
+      blocks += g.blocks(i, (int)(bn - p0 < g.cap[i] ? bn - p0 : g.cap[i]));
+    }
+    const int first = (int)(bn < g.cap[i] ? bn : g.cap[i]);
+    const long long v[5] = {launches, g.cap[i], blocks, g.resident[i], g.base[i] + 4 * (first + 1)};
+    for (int j = 0; j < 5; ++j) out[5 * i + j] = v[j];
+  }
   return 0;
 }

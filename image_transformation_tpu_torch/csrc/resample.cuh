@@ -74,6 +74,13 @@ static_assert(TY == 32, "K2's tables build one output row per lane of warp 1");
 static_assert(RC % 32 == 0 && RCW == 32 && TY % WARPS == 0, "tile shape");
 static_assert(PATCH_BYTES % 16 == 0, "the H sums are int4");
 
+// Where a tile's output pixels go: pixel (oy, ox) of the output at
+// out[oy * mw + ox], for ox0 <= ox < ext_w and oy0 <= oy < ext_h.
+struct TileDst {
+  uchar4* out;
+  int mw, ext_h, ext_w, ox0, oy0;
+};
+
 struct TileWindows {
   int hlo[TX], hhi[TX];  // window of each tile column (lo == hi: empty)
   int vlo[TY], vhi[TY];  // window of each tile row
@@ -177,10 +184,13 @@ struct SharedTaps {
 // in shared memory (int4 per row and column, owned by one thread) between
 // chunks. Either way a thread holds the H result of its (row, column) pairs
 // as packed u32 until the whole block is done with the chunk, then writes it.
+//
+// The tile's pixels go to `dst` (TileDst), read only after the passes: a
+// caller whose tile origin is not in blockIdx keeps `dst` in shared memory,
+// so that no output pointer stays live in registers through the passes.
 template <class Src, class Taps>
 __device__ __forceinline__ void resample_tile(const Src& src, const Taps& tab, TileWindows& win,
-                                              uint32_t* smem, uchar4* __restrict__ out,
-                                              int mw, int ext_h, int ext_w, int ox0, int oy0) {
+                                              uint32_t* smem, const TileDst& dst) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   uint32_t* patch = smem;                                 // [RC][PS]
   uint32_t* hres = smem + PATCH_BYTES / 4;                // [TX][TS]
@@ -240,16 +250,25 @@ __device__ __forceinline__ void resample_tile(const Src& src, const Taps& tab, T
     __syncthreads();  // hres and the patch are rewritten by the next chunk
   }
 
-  const int ox = ox0 + lane;
+  uchar4* __restrict__ out = dst.out;
+  const int mw = dst.mw, ext_h = dst.ext_h, ext_w = dst.ext_w;
+  const int ox = dst.ox0 + lane;
 #pragma unroll
   for (int q = 0; q < ROWS_PER_WARP; ++q) {
-    const int oy = oy0 + warp + WARPS * q;
+    const int oy = dst.oy0 + warp + WARPS * q;
     if (ox < ext_w && oy < ext_h) {
       const int* a = acc_v[q];
       out[(size_t)oy * mw + ox] = pillow::unpremultiply(
           pillow::clip8(a[0]), pillow::clip8(a[1]), pillow::clip8(a[2]), pillow::clip8(a[3]));
     }
   }
+}
+
+template <class Src, class Taps>
+__device__ __forceinline__ void resample_tile(const Src& src, const Taps& tab, TileWindows& win,
+                                              uint32_t* smem, uchar4* __restrict__ out,
+                                              int mw, int ext_h, int ext_w, int ox0, int oy0) {
+  resample_tile(src, tab, win, smem, TileDst{out, mw, ext_h, ext_w, ox0, oy0});
 }
 
 // Pillow's plain copy of a tile (identity / `same`): the object's pixel

@@ -23,7 +23,8 @@ the previous render's windows with the background, a solid colour or a
   :class:`RenderGeometry` (built by :func:`render_geometry`: a render's
   envelope, plane and windows, and its meta), :func:`planarize_objects`,
   :func:`pack_rgba_scalar`;
-- :func:`fused_v3` / :func:`fused_v3_reference`,
+- :func:`fused_v3` / :func:`fused_v3_reference` (K2 walks only the live
+  tiles of its placements, counted by the plain :func:`_v3_live_tiles`),
   :func:`restore_windows` / :func:`restore_windows_reference`;
 - :func:`render_fused_v3_step`, the one restore-then-compose code, which the
   programs and ``parallel.sweep``'s render step run;
@@ -97,11 +98,14 @@ FLAG_LIVE = 1
 FLAG_IDENTITY = 2
 
 #: launches since the last reset (one per launching wrapper call on CUDA;
-#: "fused_v3_chunks" counts each chunk a K2 call launches over, and
-#: "fused_v3_tables" each chunk that ran K2's table stage: a mixed launch's)
+#: "fused_v3_chunks" counts each chunk a K2 call launches over,
+#: "fused_v3_tables" each chunk that ran K2's table stage: a mixed launch's,
+#: and "fused_v3_walks" each launch of K2's resample, which walks the live
+#: tiles of at most as many placements as its prefix fits: one a chunk, or
+#: more where a chunk's placements pass that cap)
 LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "fused_v3_chunks": 0, "fused_v3_tables": 0,
-            "restore_windows": 0, "window_blend": 0, "window_blend_planar": 0,
-            "window_blend_stage": 0, "packed_luma": 0}
+            "fused_v3_walks": 0, "restore_windows": 0, "window_blend": 0,
+            "window_blend_planar": 0, "window_blend_stage": 0, "packed_luma": 0}
 
 _MAX_GRID_X = (1 << 31) - 1  # CUDA's limit on gridDim.x, which carries B*N
 _MAX_GRID_Z = 65535  # CUDA's limit on gridDim.y and gridDim.z
@@ -227,10 +231,10 @@ _ARGTYPES = {
     "fused_compose_scratch_bytes": [ctypes.c_int] * 4,
     "fused_compose_bounds_slices": [ctypes.c_int] * 2,
     "fused_compose_smem": [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    "fused_v3_smem": [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "fused_compose_bounds_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-    "fused_v3_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "fused_v3_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2,
     "fused_v3_tables_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "fused_v3_grid": [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "restore_windows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "restore_windows_ramp_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "restore_windows_smem": [ctypes.c_int],
@@ -338,13 +342,13 @@ def _k1_scratch_bytes(B: int, N: int, mh: int, mw: int) -> int:
 
 def launch_smem(kernel: str, ph: int, pw: int, n: int) -> Tuple[int, ...]:
     """Dynamic shared memory (bytes) of each launch of K1 (``kernel``
-    "fused_compose": bounds, resample, blend), K2 ("fused_v3": resample,
-    blend), K4 ("window_blend": bounds, blend) or K3 ("restore_windows")
-    for objects padded to (ph, pw), ``n`` per canvas, as the launches size
-    it (K3 and K4 ignore the pad)."""
+    "fused_compose": bounds, resample, blend), K4 ("window_blend": bounds,
+    blend) or K3 ("restore_windows") for objects padded to (ph, pw), ``n``
+    per canvas, as the launches size it (K3 and K4 ignore the pad; K2's
+    walks: :func:`_v3_grid`)."""
     if kernel == "restore_windows":
         return (_kernel_entry("restore_windows_smem")(n),)
-    out = (ctypes.c_int * {"fused_compose": 3, "fused_v3": 2, "window_blend": 2}[kernel])()
+    out = (ctypes.c_int * {"fused_compose": 3, "window_blend": 2}[kernel])()
     if kernel == "window_blend":
         _kernel_entry("window_blend_smem")(n, out)
     else:
@@ -884,6 +888,79 @@ def fused_v3_tables(meta: torch.Tensor, obj_pad_hw: Tuple[int, int],
     return tables
 
 
+def _v3_live_tiles(meta: torch.Tensor, out_max_hw: Tuple[int, int]) -> torch.Tensor:
+    """Live 32x32 tiles of each placement of a K2 launch, int64 [B, N]: the
+    tiles of its output extent (``out_h``, ``out_w`` clamped to the
+    envelope ``out_max_hw``), 0 where it is not valid: the tiles K2's walk
+    hands out (``csrc/live_tiles.cuh``), which are the blocks of a grid
+    over the envelope that would pass the kernels' early exits."""
+    mh, mw = out_max_hw
+    m = meta.to(torch.int64)
+    tiles = ((m[..., 8].clamp(0, mh) + _V3_TILE - 1) // _V3_TILE
+             * ((m[..., 9].clamp(0, mw) + _V3_TILE - 1) // _V3_TILE))
+    return torch.where(m[..., 5] > 0, tiles, torch.zeros_like(tiles))
+
+
+class _V3Grid(NamedTuple):
+    """The launches of one K2 chunk (:func:`_v3_grid`), for its resample
+    and its blend: the launches (more than one where the chunk's placements
+    pass the walk's cap), the most placements a launch walks (the cap),
+    their blocks in all, the resident blocks an SM, and the first launch's
+    dynamic shared memory (bytes)."""
+
+    resample_launches: int
+    resample_cap: int
+    resample_blocks: int
+    resample_resident: int
+    resample_smem: int
+    blend_launches: int
+    blend_cap: int
+    blend_blocks: int
+    blend_resident: int
+    blend_smem: int
+
+
+def _v3_grid(batch: int, n_objects: int, obj_pad_hw: Tuple[int, int],
+             out_max_hw: Tuple[int, int], device) -> _V3Grid:
+    """The launches :func:`fused_v3` makes for one chunk of ``batch``
+    canvases on a CUDA ``device``, as ``csrc/fused_v3.cu`` makes them:
+    persistent grids (the SMs times the resident blocks an SM, or fewer)
+    over the live tiles of at most as many placements as the walk's prefix
+    of 4 bytes a placement fits beside each kernel's shared memory without
+    lowering its resident blocks. For the smoke run's and the card tests'
+    block counts."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"_v3_grid needs a CUDA device, not {dev}")
+    out = (ctypes.c_longlong * 10)()
+    with torch.cuda.device(dev):
+        rc = _kernel_entry("fused_v3_grid")(int(batch), int(n_objects),
+                                            *(int(v) for v in obj_pad_hw),
+                                            *(int(v) for v in out_max_hw), out)
+    if rc != 0:
+        raise RuntimeError(f"fused_v3_grid: CUDA error {rc}")
+    return _V3Grid(*(int(v) for v in out))
+
+
+_V3_CLAIMS = {}  # (device index, stream handle): K2's resample claim counter
+
+
+def _v3_claims(dev: torch.device, stream: int) -> torch.Tensor:
+    """K2's resample claim counter for ``stream`` of ``dev``: two int32,
+    zero between launches (each launch's last block zeroes them), kept
+    per stream so that launches running at one time never share one, and
+    allocated at the stream's first K2 launch. A stream that is being
+    captured into a CUDA graph gets a new counter each launch, from the
+    graph's memory, whose zeroing the graph records."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(2, dtype=torch.int32, device=dev)
+    key = (dev.index, stream)
+    claims = _V3_CLAIMS.get(key)
+    if claims is None:
+        claims = _V3_CLAIMS.setdefault(key, torch.zeros(2, dtype=torch.int32, device=dev))
+    return claims
+
+
 def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
              out_max_hw: Tuple[int, int]) -> torch.Tensor:
     """Resample every live placement with tables built from its sizes and
@@ -898,7 +975,9 @@ def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
     On a CUDA device this launches K2 (``csrc/fused_v3.cu``) on the current
     stream, over chunks of canvases that keep its scratch under
     ``_V3_SCRATCH_BYTES``, and raises if a launch fails; on the CPU it runs
-    :func:`fused_v3_reference`.
+    :func:`fused_v3_reference`. Each chunk's resample and blend walk only
+    its live tiles (the resample's launches counted in
+    ``LAUNCHES["fused_v3_walks"]``).
 
     Upscale accuracy depends on the envelope, not on the box: where
     ``out_max_hw`` exceeds the objects' padded extent (mh > ph or mw > pw)
@@ -927,19 +1006,23 @@ def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
     res = torch.empty((chunk, N, mh, mw, 4), dtype=torch.uint8, device=dev)
     tables = (torch.empty((chunk, N, _v3_table_positions((mh, mw)), _V3_ENTRY),
                           dtype=torch.int32, device=dev) if mixed else None)
+    walks = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        claims = _v3_claims(dev, stream)
         for b0 in range(0, B, chunk):
             nb = min(chunk, B - b0)
             rc = fn(
                 plane[b0].data_ptr(), objs_p[0 if Bo == 1 else b0].data_ptr(),
                 meta[b0].data_ptr(), res.data_ptr(), tables.data_ptr() if mixed else None,
-                nb, Bo, N, hp, wp, ph, pw, mh, mw, stream,
+                claims.data_ptr(), nb, Bo, N, hp, wp, ph, pw, mh, mw, stream,
+                ctypes.byref(walks),
             )
             if rc != 0:
                 raise RuntimeError(f"fused_v3: kernel launch failed with CUDA error {rc}")
             LAUNCHES["fused_v3_chunks"] += 1
             LAUNCHES["fused_v3_tables"] += mixed
+            LAUNCHES["fused_v3_walks"] += walks.value
     LAUNCHES["fused_v3"] += 1
     return plane
 

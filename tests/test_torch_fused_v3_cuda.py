@@ -217,3 +217,196 @@ def test_k2_pads_past_the_staged_taps_match_plain_version(cuda):
     assert ck.LAUNCHES["fused_v3"] == before + 1
     assert not torch.equal(got, plane)
     assert torch.equal(got, want)
+
+
+def _walk_case(name):
+    """(objects u8 [Bo, N, 4, ph, pw], meta i32 [B, N, 10], plane i32 [B, hp,
+    wp], envelope) of one edge of K2's live-tile walk; origins overlap
+    (z-order), and boxes pass the plane's right and bottom edges (a
+    negative origin is outside K2's contract: the meta never gives one)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    ph, pw, env, hp, wp = 48, 128, (96, 160), 160, 256
+    if name == "all_dropped":  # a chunk of 0 live tiles: nothing drawn
+        sizes, valid, same, B = [(40, 100, 90, 150)] * 4, 0, 0, 3
+    elif name == "fills_the_envelope":  # one placement's tiles are the envelope's
+        sizes, valid, same, B = [(40, 100, 96, 160), (20, 30, 9, 7)], 1, 0, 2
+    elif name in ("edge_sizes", "edge_sizes_in_the_pad"):  # out of 1, 31, 32, 33 an axis
+        sizes = [(30, 60, h, w) for h in (1, 31, 32, 33) for w in (1, 31, 32, 33)]
+        valid, same, B = 1, 0, 2
+        if name == "edge_sizes_in_the_pad":  # the shrinking instance: no table stage
+            env = (ph, pw)
+    elif name == "plain_copy":  # `same` placements copy their pixels, beside a resample
+        sizes, valid, same, B = [(40, 90, 40, 90), (33, 70, 50, 140), (9, 31, 9, 31)], 1, 1, 2
+    elif name == "per_canvas_objects":  # Bo == B
+        sizes, valid, same, B = [(40, 100, 70, 33), (17, 128, 96, 64), (48, 10, 5, 159)], 1, 0, 3
+    else:
+        raise KeyError(name)
+    N = len(sizes)
+    Bo = B if name == "per_canvas_objects" else 1
+    objs = torch.from_numpy(rng.integers(0, 256, (Bo, N, 4, ph, pw), dtype=np.uint8))
+    meta = np.zeros((B, N, 10), np.int32)
+    for b in range(B):
+        for k, (ih, iw, oh, ow) in enumerate(sizes):
+            x, y = int(rng.integers(0, wp - 10)), int(rng.integers(0, hp - 10))
+            meta[b, k] = (x, y, 0, 0, same and k % 2 == 0, valid, ih, iw, oh, ow)
+    plane = torch.from_numpy(
+        rng.integers(-2**31, 2**31, (B, hp, wp), dtype=np.int64).astype(np.int32))
+    return objs, torch.from_numpy(meta), plane, env
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_dropped", "fills_the_envelope", "edge_sizes",
+                                  "edge_sizes_in_the_pad", "plain_copy", "per_canvas_objects"])
+def test_k2_walk_edges_match_plain_version(cuda, case):
+    """Each edge of the live-tile walk, in one chunk of one walk a kernel:
+    K2 == its plain version byte for byte, on a grid of at most the SMs
+    times the resident blocks, and no more blocks than a grid over the
+    envelope would take."""
+    objs, meta, plane, env = _walk_case(case)
+    B, N = meta.shape[:2]
+    want = ck.fused_v3_reference(plane.clone(), objs, meta, env)
+    ck.reset_launch_counts()
+    got = ck.fused_v3(plane.to(cuda), objs.to(cuda), meta.to(cuda), env)
+    torch.cuda.synchronize()
+    grid = ck._v3_grid(B, N, objs.shape[3:], env, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    envelope_blocks = B * N * -(-env[0] // 32) * -(-env[1] // 32)
+    assert grid.resample_launches == grid.blend_launches == 1
+    assert ck.LAUNCHES["fused_v3_walks"] == ck.LAUNCHES["fused_v3_chunks"] == 1
+    assert grid.resample_resident >= 1 and grid.blend_resident >= 1
+    assert grid.resample_blocks == min(sms * grid.resample_resident, envelope_blocks)
+    assert grid.blend_blocks == min(sms * grid.blend_resident, envelope_blocks)
+    assert torch.equal(got.cpu(), want)
+    if case == "all_dropped":
+        assert torch.equal(got.cpu(), plane)
+    else:
+        assert not torch.equal(got.cpu(), plane)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", [(32, 32), (96, 160)], ids=["shrinking", "mixed"])
+def test_k2_past_the_walks_prefix_cap_splits_the_launch(cuda, env):
+    """B*N = 21,000 placements: the walk's prefix (84 KB) does not fit
+    beside the resample's shared memory at its resident blocks, so each
+    kernel walks consecutive ranges of at most its cap of placements, in
+    several launches, every resample before the first blend; a range may
+    end inside a canvas. K2 == its plain version on the canvases at each
+    range's ends and on the first and the last; the rest are dropped and
+    stay as they were."""
+    rng = np.random.default_rng(21000)
+    B, N, ph, pw = 3000, 7, 48, 128
+    chunk = ck._v3_chunk(B, N, *env, env[0] > ph or env[1] > pw)
+    ends, walks = {0, B - 1}, 0
+    for b0 in range(0, B, chunk):
+        n = min(chunk, B - b0) * N
+        grid = ck._v3_grid(n // N, N, (ph, pw), env, cuda)
+        assert grid.resample_launches == -(-n // grid.resample_cap)
+        assert grid.blend_launches == -(-n // grid.blend_cap)
+        if b0 == 0:
+            assert grid.resample_launches > 1 and grid.blend_launches > 1
+        walks += grid.resample_launches
+        ends |= {b0 + p // N for cap in (grid.resample_cap, grid.blend_cap)
+                 for p0 in range(cap, n, cap) for p in (p0 - 1, p0)}
+    live = sorted(ends)
+    objs = torch.from_numpy(rng.integers(0, 256, (1, N, 4, ph, pw), dtype=np.uint8))
+    meta = np.zeros((B, N, 10), np.int32)
+    for b in live:
+        for k in range(N):
+            oh, ow = 32 - 4 * k, 31 + 10 * k  # past a small envelope: clamped
+            meta[b, k] = (8 * k, 4 * k, 0, 0, int(k == 3), 1, 40, 100, oh, ow)
+    meta = torch.from_numpy(meta)
+    plane = torch.from_numpy(
+        rng.integers(-2**31, 2**31, (B, 48, 128), dtype=np.int64).astype(np.int32))
+    ck.reset_launch_counts()
+    got = ck.fused_v3(plane.to(cuda), objs.to(cuda), meta.to(cuda), env).cpu()
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fused_v3_chunks"] == -(-B // chunk)
+    assert ck.LAUNCHES["fused_v3_walks"] == walks > ck.LAUNCHES["fused_v3_chunks"]
+    idx = torch.tensor(live)
+    want = ck.fused_v3_reference(plane[idx].clone(), objs, meta[idx], env)
+    assert torch.equal(got[idx], want)
+    dead = torch.ones(B, dtype=torch.bool)
+    dead[idx] = False
+    assert torch.equal(got[dead], plane[dead])
+    assert not torch.equal(got[idx], plane[idx])
+
+
+@pytest.mark.cuda
+def test_k2_walk_at_the_score1080_shapes_matches_plain_version(cuda):
+    """The score1080 cell's launch: 1080 wide x 1920 high, B=256, the
+    bundle's four cutouts shrunk by U(0.3, 1.0) at uniform origins (the
+    shrinking instance, one chunk of 1,024 placements): K2 walks and ==
+    its plain version."""
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.parallel.sweep import random_downscale_boxes
+
+    arrays = load_bundle("data/squarespace").to_arrays()
+    H, W, B = 1920, 1080, 256
+    N = arrays.obj_hw.shape[0]
+    rng = np.random.default_rng(1080)
+    boxes = np.stack([random_downscale_boxes(rng, arrays.obj_hw, (H, W)) for _ in range(B)])
+    hw = np.broadcast_to(arrays.obj_hw, (B, N, 2)).astype(np.int32)
+    op = ck.planarize_objects(torch.from_numpy(arrays.objects[None]))
+    static = tuple(tuple(int(v) for v in row) for row in arrays.obj_hw)
+    bg = ck.pack_rgba_scalar((128, 128, 128, 255))
+    want = ck.render_solid_fused_v3_program(op, hw, boxes, (H, W), bg, pipelined=True,
+                                            static_obj_hw=static)
+    ck.reset_launch_counts()
+    got = ck.render_solid_fused_v3_program(op.to(cuda), hw, torch.from_numpy(boxes).to(cuda),
+                                           (H, W), bg, pipelined=True, static_obj_hw=static)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fused_v3_chunks"] == ck.LAUNCHES["fused_v3_walks"] == 1
+    assert ck.LAUNCHES["fused_v3_tables"] == 0  # the envelope is the objects' pad
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_k2_walk_claims_stay_right_across_launches_and_streams(cuda):
+    """The resample's walk claims tiles from a counter kept per device and
+    stream (``compose_kernels._v3_claims``), which each launch's last block
+    zeroes: launches in turn on the default stream and on a side stream,
+    and a launch of another shape between them, each == the plain version;
+    the counters are zero after them."""
+    objs, meta, plane, env = _walk_case("per_canvas_objects")
+    want = ck.fused_v3_reference(plane.clone(), objs, meta, env)
+    o2, m2, p2, e2 = _walk_case("edge_sizes")
+    want2 = ck.fused_v3_reference(p2.clone(), o2, m2, e2)
+    objs, meta, plane = objs.to(cuda), meta.to(cuda), plane.to(cuda)
+    o2, m2, p2 = o2.to(cuda), m2.to(cuda), p2.to(cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))  # the inputs are copied on the default
+    outs = []
+    for on_side in (False, True, False, True):
+        with torch.cuda.stream(side if on_side else torch.cuda.current_stream(cuda)):
+            outs.append(ck.fused_v3(plane.clone(), objs, meta, env))
+            outs.append(ck.fused_v3(p2.clone(), o2, m2, e2))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        assert torch.equal(got.cpu(), want2 if i % 2 else want), i
+    for stream in (torch.cuda.current_stream(cuda), side):
+        assert ck._v3_claims(torch.device(cuda), stream.cuda_stream).tolist() == [0, 0]
+
+
+@pytest.mark.cuda
+def test_k2_walk_replays_in_a_cuda_graph(cuda):
+    """K2 captured into a CUDA graph, after a launch outside it: the
+    captured launch takes its claim counter from the graph's memory, and
+    each replay == the plain version (the counter is zero again for the
+    next replay)."""
+    objs, meta, plane, env = _walk_case("per_canvas_objects")
+    want = ck.fused_v3_reference(plane.clone(), objs, meta, env)
+    objs, meta, plane = objs.to(cuda), meta.to(cuda), plane.to(cuda)
+    work = plane.clone()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):  # warm up outside the capture: the library, the caches
+        ck.fused_v3(work, objs, meta, env)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ck.fused_v3(work, objs, meta, env)
+    for _ in range(3):
+        work.copy_(plane)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(work.cpu(), want)

@@ -96,6 +96,7 @@ def test_gradient_step_with_upscales_matches_the_cpu_step(cuda, horizontal):
         assert torch.equal(out[cuda][0].cpu(), out["cpu"][0])
         assert torch.equal(out[cuda][1].cpu(), out["cpu"][1])
     assert ck.LAUNCHES["restore_windows"] == 2 and ck.LAUNCHES["fused_v3"] == 3
+    assert ck.LAUNCHES["fused_v3_walks"] == ck.LAUNCHES["fused_v3_chunks"] == 3
 
 
 @pytest.mark.cuda
@@ -127,7 +128,57 @@ def test_k2_at_the_uhd_cells_upscales_matches_plain_version(cuda, level):
                                      (H, W), 0x7f102030, env)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["fused_v3_tables"] == 1
+    assert ck.LAUNCHES["fused_v3_walks"] == 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_k2_walks_each_chunk_of_a_uhd_batch(cuda):
+    """B=256 at the UHD cell's pad and envelope runs K2 in 11 chunks of up
+    to 25 canvases, each a mixed launch that walks its live tiles. Six
+    canvases, first and last ones of chunks, carry the four cutouts at one
+    of the cell's levels each (its smallest and its largest among them);
+    the other canvases' placements are dropped, so most chunks walk no
+    tile. K2 == its plain version on the six, and leaves every other
+    canvas of the plane as it was."""
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+
+    arrays = load_bundle("bench_torch/bundles/squarespace").to_arrays()
+    H, W, B = 3840, 2160, 256
+    hw = arrays.obj_hw
+    N = len(hw)
+    scale = 5.848394 * np.linspace(0.5, 1.0, 12)
+    bounds = [(round(h * scale[-1]), round(w * scale[-1])) for h, w in hw.tolist()]
+    live = {0: 0, 24: 11, 25: 5, 130: 6, 250: 3, 255: 8}  # canvas: level
+    rng = np.random.default_rng(916)
+    boxes = np.zeros((B, N, 4), np.int32)
+    for b in range(B):
+        level = live.get(b, int(rng.integers(0, 12)))
+        for k, (h0, w0) in enumerate(hw.tolist()):
+            h, w = round(h0 * scale[level]), round(w0 * scale[level])
+            x, y = int(rng.integers(0, W - w + 1)), int(rng.integers(0, H - h + 1))
+            boxes[b, k] = (x, y, x + w, y + h)
+    geo = ck.render_geometry((H, W), (max(h for h, _ in bounds), max(w for _, w in bounds)),
+                             N, bounds, pipelined=True)
+    env = geo.envelope
+    meta = geo.meta(np.broadcast_to(hw, (B, N, 2)).astype(np.int32), boxes, cuda)
+    dead = [b for b in range(B) if b not in live]
+    meta[dead, :, 5] = 0
+    objs_p = ck.planarize_objects(torch.from_numpy(arrays.objects[None]))
+    gen = torch.Generator(device=cuda).manual_seed(916)
+    before = torch.randint(-2**31, 2**31 - 1, (B, *geo.pad), dtype=torch.int32, device=cuda,
+                           generator=gen)
+    plane = before.clone()
+    ck.reset_launch_counts()
+    ck.fused_v3(plane, objs_p.to(cuda), meta, env)
+    torch.cuda.synchronize()
+    assert env == (1216, 2176) and ck._v3_chunk(B, N, *env, True) == 25
+    assert ck.LAUNCHES["fused_v3_chunks"] == ck.LAUNCHES["fused_v3_tables"] == 11
+    assert ck.LAUNCHES["fused_v3_walks"] == 11
+    for b in live:
+        want = ck.fused_v3_reference(before[b:b + 1].cpu(), objs_p, meta[b:b + 1].cpu(), env)
+        assert torch.equal(plane[b:b + 1].cpu(), want), b
+    assert all(torch.equal(plane[b], before[b]) for b in dead)
 
 
 @pytest.mark.cuda
@@ -168,7 +219,7 @@ def test_k2_mixed_launch_with_a_growing_and_a_shrinking_axis_matches_plain_versi
     ck.reset_launch_counts()
     got = ck.fused_v3(plane.to(cuda), objs.to(cuda), meta.to(cuda), env)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES["fused_v3_tables"] == 1
+    assert ck.LAUNCHES["fused_v3_tables"] == ck.LAUNCHES["fused_v3_walks"] == 1
     assert torch.equal(got.cpu(), want)
 
 
@@ -192,8 +243,11 @@ def test_k2_chunk_counter_counts_each_chunk_of_an_overflowing_batch(cuda):
     assert ck.LAUNCHES["fused_v3"] == 1
     assert ck.LAUNCHES["fused_v3_chunks"] == -(-B // chunk) == 3
     assert ck.LAUNCHES["fused_v3_tables"] == 3  # a mixed launch: one table stage a chunk
+    assert ck.LAUNCHES["fused_v3_walks"] == 3  # each chunk walks its (no) live tiles
     assert bool((plane == 7).all())
     # an envelope within the pad shrinks only: no table stage
     ck.fused_v3(plane, objs_p, meta, (8, 128))
     torch.cuda.synchronize()
     assert ck.LAUNCHES["fused_v3_chunks"] == 4 and ck.LAUNCHES["fused_v3_tables"] == 3
+    assert ck.LAUNCHES["fused_v3_walks"] == 4
+    assert bool((plane == 7).all())
