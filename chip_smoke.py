@@ -54,6 +54,19 @@ exits non-zero:
    fused_v3_reference (in slices of 32 canvases), bit-exact, with median
    CUDA-event times of the kernels beside their bounds (K2 on the bundle's
    axis), the plain versions' times, and ptxas's figures of the instances;
+   then [campaign], the campaign_uhd.sweep4x64 cell's shapes (its
+   configuration and mix: B=64, canvas b bundle b % 2's own planar cutouts
+   in 4 slots, audio_book's fourth empty, and its own gradient line; the
+   four ratios' steps with the driver's bounds and boxes from seed 0): each
+   ratio's fresh render, then 3 rounds of reuse steps, the ratios in turn,
+   with the launch counts reset just before and read just after (K3's line
+   form on every reuse step, every K2 chunk on per-canvas objects); on each
+   ratio's last reuse step the plane == a fresh render, the empty slots'
+   windows lie past the plane and walk no tile, and K3's line form ==
+   restore_windows_reference and K2 == fused_v3_reference (slices of 32
+   canvases with their own objects) on the card's own inputs, bit-exact,
+   each timed beside its bound; K3's line form on the other axis too, and
+   ptxas's figures of both line-form instances;
 7. hybrid path (squarespace, 1080x1920, B=64, boxes from seed 0 plus an
    identity box and the edge box of benchmarks/validate_hw.py:100): for
    each clamped x pipelined form of composite_batch_hybrid_packed, K4
@@ -755,6 +768,13 @@ UHD_MIX = "bench_torch/mixes/score916.json"
 #: for a whole batch of 256 would take tens of GB)
 UHD_PLAIN_SLICE = 32
 UHD_REUSE_STEPS = 3
+#: the campaign cell's configuration and mix (campaign_uhd.sweep4x64)
+CAMPAIGN_CONFIG = "bench_torch/configs/campaign_uhd.json"
+CAMPAIGN_MIX = "bench_torch/mixes/sweep4x64.json"
+#: K3's line forms (a gradient line per canvas), by a substring of the
+#: kernel's mangled name in ptxas's report
+K3_LINES_LAUNCHES = {True: (("restore", "restore_lines_kernelILi1E"),),  # ROW_RAMP
+                     False: (("restore", "restore_lines_kernelILi2E"),)}  # COL_RAMP
 
 
 class _CaptureReuse:
@@ -803,13 +823,20 @@ def _canvas_err(a, b) -> int:
 def _k2_bound_sliced(plane, objs_p, meta, env, per, resample_only=False):
     """``k2_bound`` (or ``k2_resample_bound``) of a batch whose plain
     version runs in slices of ``per`` canvases: bytes, multiply-adds and
-    scalar time summed over the slices, the shared objects read once."""
+    scalar time summed over the slices, shared objects read once and
+    per-canvas objects ([B, N, ...]) each by its own slice."""
     from image_transformation_tpu_torch.ops.roofline import bound, k2_bound, k2_resample_bound
 
-    parts = [k2_resample_bound(objs_p, meta[i:i + per], env) if resample_only
-             else k2_bound(plane[i:i + per], objs_p, meta[i:i + per], env)
+    own = objs_p.shape[0] > 1
+
+    def objs(i):
+        return objs_p[i:i + per] if own else objs_p
+
+    parts = [k2_resample_bound(objs(i), meta[i:i + per], env) if resample_only
+             else k2_bound(plane[i:i + per], objs(i), meta[i:i + per], env)
              for i in range(0, plane.shape[0], per)]
-    nbytes = sum(r["bound_gbytes"] for r in parts) * 1e9 - (len(parts) - 1) * objs_p.numel()
+    shared = 0 if own else (len(parts) - 1) * objs_p.numel()
+    nbytes = sum(r["bound_gbytes"] for r in parts) * 1e9 - shared
     out = bound(nbytes, sum(r["bound_gmacs"] for r in parts) * 1e9)
     out["scalar_ms"] = sum(r["scalar_ms"] for r in parts)
     return out
@@ -967,7 +994,8 @@ def phase_gradient(smi: str):
               f"around them: K3 {launches['restore_windows']}, K2 {launches['fused_v3']} calls "
               f"in {launches['fused_v3_chunks']} chunks, fused_v3_tables "
               f"{launches['fused_v3_tables']}, fused_v3_walks {launches['fused_v3_walks']}, "
-              f"luma {launches['packed_luma']}")
+              f"fused_v3_own_objects {launches['fused_v3_own_objects']}, restore_windows_lines "
+              f"{launches['restore_windows_lines']}, luma {launches['packed_luma']}")
         for k, v in launches.items():
             counts[k] = counts.get(k, 0) + v
         step.release()
@@ -975,6 +1003,185 @@ def phase_gradient(smi: str):
         gc.collect()
         torch.cuda.empty_cache()
     return results, counts
+
+
+def phase_campaign(smi: str):
+    """Kernel-table row 17's line form and K2 on per-canvas objects at the
+    campaign cell's shapes (campaign_uhd.sweep4x64): B=64, canvas b carrying
+    bundle b % 2's own planar cutouts in 4 slots (audio_book's fourth empty)
+    on its own gradient line, one make_gradient_render_step(reuse=True,
+    stat="luma") a ratio with the driver's bounds and boxes (seed 0). Each
+    ratio's fresh render, then 3 rounds of reuse steps, the four ratios in
+    turn, the launch counts read around them; on each ratio's last reuse
+    step the plane == a fresh render, the empty slots restore and walk
+    nothing, and K3's line form and K2 == their plain versions on the
+    card's own inputs, each timed beside its bound."""
+    import numpy as np
+    import torch
+
+    from bench_torch.drivers.campaign import campaign_boxes, ratio_bounds
+    from bench_torch.drivers.score_up import level_sizes, scale_levels
+    from bench_torch.reference import canvas_size
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.ops import compose_kernels as ck
+    from image_transformation_tpu_torch.ops.background import gradient_spec
+    from image_transformation_tpu_torch.ops.roofline import k3_bound
+    from image_transformation_tpu_torch.parallel import make_gradient_render_step
+
+    cfg = json.loads((ROOT / CAMPAIGN_CONFIG).read_text())
+    mix = json.loads((ROOT / CAMPAIGN_MIX).read_text())
+    device = torch.device("cuda", 0)
+    bundles = [load_bundle(ROOT / path) for path in cfg["bundles"]]
+    N = max(len(b.meta) for b in bundles)
+    pad_hw = (max(m.height for b in bundles for m in b.meta.values()),
+              max(m.width for b in bundles for m in b.meta.values()))
+    arrays = [b.to_arrays(n_max=N, pad_hw=pad_hw) for b in bundles]
+    budget, B, reuse = cfg["pixel_budget_wh"], mix["batch"], UHD_REUSE_STEPS
+    levels = scale_levels(tuple(budget[::-1]), cfg["original_wh"], mix["scale_levels"],
+                          mix["scale_range"])
+    sizes = [level_sizes(a.obj_hw[:len(b.meta)], levels) for a, b in zip(arrays, bundles)]
+    which = [b % len(bundles) for b in range(B)]
+    objs_p = ck.planarize_objects(
+        torch.from_numpy(np.stack([arrays[i].objects for i in which])).to(device))
+    hw = torch.from_numpy(np.stack([arrays[i].obj_hw for i in which])).to(device)
+    specs = [gradient_spec(torch.from_numpy(np.asarray(b.background, np.uint8).copy()).to(device))
+             for b in bundles]
+    c1, c2 = (np.array([specs[i][j] for i in which], np.uint8) for j in (0, 1))
+    horizontal = [bool(specs[i][2]) for i in which]
+    ratios = mix["ratios"]
+    canvases = [canvas_size(tuple(budget), r)[::-1] for r in ratios]
+    bounds = [ratio_bounds(sizes, N, c) for c in canvases]
+    rng = np.random.default_rng(0)
+    pools = [torch.from_numpy(np.stack([campaign_boxes(rng, sizes, N, c, B)
+                                        for _ in range(reuse + 1)])).to(device) for c in canvases]
+    steps = [make_gradient_render_step(c, bnd, (c1, c2, horizontal), reuse=True, stat="luma",
+                                       device="cuda") for c, bnd in zip(canvases, bounds)]
+    for step, pool in zip(steps, pools):  # the fresh renders
+        step(None, objs_p, hw, pool[0])
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    got = []
+    with _CaptureReuse() as cap:
+        for i in range(1, reuse + 1):
+            for step, pool in zip(steps, pools):
+                cap.armed = i == reuse
+                plane, _ = step(None, objs_p, hw, pool[i])
+                if cap.armed:
+                    got.append((plane, cap.k3, cap.k2))
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    pad = tuple(objs_p.shape[3:])
+    mixed = [env[0] > pad[0] or env[1] > pad[1] for _, _, (_, _, _, env) in got]
+    chunks = [-(-B // ck._v3_chunk(B, N, *env, mixed=m))
+              for (_, _, (_, _, _, env)), m in zip(got, mixed)]
+    R = len(ratios)
+    want = {"restore_windows": reuse * R, "restore_windows_lines": reuse * R,
+            "fused_v3": reuse * R, "fused_v3_chunks": reuse * sum(chunks),
+            "fused_v3_own_objects": reuse * sum(chunks),
+            "fused_v3_tables": reuse * sum(c for c, m in zip(chunks, mixed) if m),
+            "packed_luma": reuse * R}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"[campaign] {reuse} rounds of reuse steps over {R} ratios "
+                             f"launched {launches}, expected {want}")
+    print(f"[campaign] B={B} N={N} (bundle b % 2: {[len(b.meta) for b in bundles]} cutouts, "
+          f"planar objects {tuple(objs_p.shape)}, one each canvas), ratios {ratios}: "
+          f"{reuse} rounds of reuse steps, the ratios in turn, launched K3 "
+          f"{launches['restore_windows']} (restore_windows_lines "
+          f"{launches['restore_windows_lines']}), K2 {launches['fused_v3']} calls in "
+          f"{launches['fused_v3_chunks']} chunks (fused_v3_own_objects "
+          f"{launches['fused_v3_own_objects']}, fused_v3_tables {launches['fused_v3_tables']}, "
+          f"fused_v3_walks {launches['fused_v3_walks']}), luma {launches['packed_luma']}")
+    smem = ck.launch_smem("restore_windows", 0, 0, N)
+    forms = [((f"{kind} {fill}", key),) for kind, table in (("lines", K3_LINES_LAUNCHES),
+                                                             ("shared line", K3_RAMP_LAUNCHES))
+             for fill, ((_, key),) in (("ROW_RAMP", table[True]), ("COL_RAMP", table[False]))]
+    print(f"[campaign] K3's ramp instances, ptxas: "
+          f"{'; '.join(launch_text(form, smem) for form in forms)}")
+    empty = (hw == 0).all(-1).cpu()  # [B, N]: the slots of size 0
+    results = {}
+    for r, (ratio, (H, W)) in enumerate(zip(ratios, canvases)):
+        tag = f"[campaign] {ratio} {W}x{H}"
+        plane, (pre_k3, origins, extents, ramp), (pre_k2, _, meta, env) = got[r]
+        got[r] = None
+        hp, wp = plane.shape[1:]
+        if tuple(ramp.values.shape) != (B, wp if ramp.horizontal else hp):
+            raise AssertionError(f"{tag} the ramp is {tuple(ramp.values.shape)}, not a line a canvas")
+        # the empty slots: windows past the plane, no live tile, no table entry
+        tiles = ck._v3_live_tiles(meta.cpu(), env)
+        past = origins.cpu()[empty]
+        if not (bool((past == torch.tensor([wp, hp], dtype=past.dtype)).all())
+                and int(tiles[empty].sum()) == 0 and int(tiles[~empty].min()) > 0):
+            raise AssertionError(f"{tag} an empty slot has a window on the plane or live tiles")
+        fresh = ck.render_fused_v3_program(objs_p, hw, pools[r][reuse], (H, W), ramp,
+                                           (max(h for h, _ in bounds[r]),
+                                            max(w for _, w in bounds[r])),
+                                           pipelined=True, static_obj_hw=bounds[r])
+        if not torch.equal(plane, fresh):
+            raise AssertionError(f"{tag} reuse step {reuse} != a fresh render")
+        del fresh
+
+        # K3's line form == its plain version on the card's own input, timed
+        err = _canvas_err(ck.restore_windows_reference(pre_k3, origins, extents, ramp), pre_k2)
+        if not torch.equal(pre_k3, pre_k2):
+            raise AssertionError(f"{tag} K3's line form != plain version, max abs err {err}")
+        del pre_k3
+        axes = [(ramp, "horizontal" if ramp.horizontal else "vertical")]
+        if r == 0:  # and along the other axis, on the same windows
+            other = ck.gradient_ramp(c1, c2, not ramp.horizontal, (H, W), (hp, wp), device)
+            axes.append((other, "vertical" if ramp.horizontal else "horizontal"))
+        k3b = k3_bound(pre_k2, origins, extents)
+        for line, axis in axes:
+            if line is not ramp:
+                want_k3 = ck.restore_windows_reference(pre_k2.clone(), origins, extents, line)
+                got_k3 = ck.restore_windows(pre_k2.clone(), origins, extents, line)
+                err = _canvas_err(got_k3, want_k3)
+                if not torch.equal(got_k3, want_k3):
+                    raise AssertionError(f"{tag} K3's {axis} line form != plain version, "
+                                         f"max abs err {err}")
+                del want_k3, got_k3
+            work = pre_k2.clone()
+            ms, plain_ms, raw = _in_turns(
+                lambda: ck.restore_windows(work, origins, extents, line),
+                lambda: ck.restore_windows_reference(work, origins, extents, line), 10, 2)
+            del work
+            rk = results[f"restore_lines_{ratio}_{axis}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, **k3b)
+            print(f"{tag} K3 line form ({axis}, lines {tuple(line.values.shape)}) plane "
+                  f"{(hp, wp)} windows {list(extents)}: K3 == plain (max abs err {err}); K3 "
+                  f"{ms:.4f} ms ({raw[0]:.4f}, {raw[1]:.4f}), plain {plain_ms:.3f} ms, "
+                  f"{_bound_text(rk)}, share of the bound {rk['bound_ms'] / ms:.4f}; "
+                  f"{k3b['summed_px']} pixels summed over the windows, {k3b['union_px']} in "
+                  f"their union, on {smi}")
+
+        # K2 on per-canvas objects == its plain version, by slices, timed
+        err, t0 = 0, time.perf_counter()
+        for i in range(0, B, UHD_PLAIN_SLICE):
+            part = ck.fused_v3_reference(pre_k2[i:i + UHD_PLAIN_SLICE].clone(),
+                                         objs_p[i:i + UHD_PLAIN_SLICE],
+                                         meta[i:i + UHD_PLAIN_SLICE], env)
+            err = max(err, _canvas_err(part, plane[i:i + UHD_PLAIN_SLICE]))
+            if not torch.equal(part, plane[i:i + UHD_PLAIN_SLICE]):
+                raise AssertionError(f"{tag} K2 != plain version on canvases {i}+, "
+                                     f"max abs err {err}")
+            del part
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        work = pre_k2.clone()
+        ms = min(cuda_ms(lambda: ck.fused_v3(work, objs_p, meta, env), 5) for _ in range(2))
+        del work
+        r2 = results[f"fused_v3_{ratio}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **_k2_bound_sliced(pre_k2, objs_p, meta, env, UHD_PLAIN_SLICE))
+        print(f"{tag} K2 (per-canvas objects, envelope {tuple(env)}) B={B} in {chunks[r]} "
+              f"chunks: K2 == plain (max abs err {err}); K2 {ms:.4f} ms, plain {plain_ms:.1f} "
+              f"ms (one pass, host clock), {_bound_text(r2)}, share of the bound "
+              f"{r2['bound_ms'] / ms:.4f}; live tiles {int(tiles.sum()):,}")
+        del plane, pre_k2, meta, origins
+        steps[r].release()
+    del got, steps, objs_p, hw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, launches
 
 
 def _pil_canvas(bundle, hw, rgba, boxes):
@@ -2526,7 +2733,8 @@ SHARE_LIMIT = 1.05
 LIVE_SHORTFALL = 0.10
 
 
-def row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15, luma, gradient):
+def row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15, luma, gradient,
+               campaign):
     """(kernel-table row, kernel, geometry, result) of every row's timed
     geometry in the phases above, each result with ``ms`` and its bound."""
     rows = [("12", "K1", f"row12_{g}", kernel[g]) for g in kernel]
@@ -2542,6 +2750,9 @@ def row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15, luma
              ("13", "K2 tables", "uhd_gradient_b256", gradient["fused_v3_tables"]),
              ("17", "K3 ramp", "uhd_horizontal_b256", gradient["restore_horizontal"]),
              ("17", "K3 ramp", "uhd_vertical_b256", gradient["restore_vertical"])]
+    rows += [("17" if g.startswith("restore") else "13",
+              "K3 lines" if g.startswith("restore") else "K2 own objects", f"campaign_{g}_b64", r)
+             for g, r in campaign.items()]
     return rows
 
 
@@ -2700,6 +2911,7 @@ def main_smoke() -> int:
     batched, batched_launches, _ = phase_batched(smi)
     luma = phase_luma(smi)
     gradient, gradient_launches = phase_gradient(smi)
+    campaign, campaign_launches = phase_campaign(smi)
     hybrid, hybrid_launches, ref = phase_hybrid(smi)
     ops_rows, row1, row15 = phase_ops(smi, ref)
     del ref
@@ -2710,7 +2922,7 @@ def main_smoke() -> int:
     ui_launches = phase_ui(smi)
     install_launches = phase_install(smi)
     phase_roofline(smi, row_shares(kernel, row1, batched, variants_k2, hybrid, ops_rows, row15,
-                                   luma, gradient))
+                                   luma, gradient, campaign))
     cli, serve = kernel["cli_9x16_b1"], kernel["serve_1080p_b64"]
     packed = {**hybrid, **{k: v for k, v in ops_rows.items() if k != "row2"}}
     print(f"[kernels] {LIBRARY_NOTE}")
@@ -2725,26 +2937,36 @@ def main_smoke() -> int:
                            **{f"row1_{k}": v for k, v in row1.items()}}),
         _entry("fused_v3", V3_SOURCE, V3_REPLACES,
                batched_launches["fused_v3"] + variants_launches + serving_launches["fused_v3"]
-               + mesh_launches["fused_v3"] + gradient_launches["fused_v3"],
+               + mesh_launches["fused_v3"] + gradient_launches["fused_v3"]
+               + campaign_launches["fused_v3"],
                batched["fused_v3"],
                max_abs_err=max(batched["fused_v3"]["max_abs_err"], variants_k2["max_abs_err"],
-                               gradient["fused_v3"]["max_abs_err"]),
+                               gradient["fused_v3"]["max_abs_err"],
+                               *(r["max_abs_err"] for g, r in campaign.items()
+                                 if g.startswith("fused_v3"))),
                chunks_uhd_gradient=gradient_launches["fused_v3_chunks"],
                fused_v3_tables=gradient_launches["fused_v3_tables"],
                geometries={"sweep_1080p_b64": batched["fused_v3"],
                            f"variants_1080p_v{WIDE_V}": variants_k2,
                            "uhd_gradient_b256": gradient["fused_v3"],
                            "uhd_gradient_b256_resample": gradient["fused_v3_resample"],
-                           "uhd_gradient_b256_tables": gradient["fused_v3_tables"]}),
+                           "uhd_gradient_b256_tables": gradient["fused_v3_tables"],
+                           **{f"campaign_{g}_b64": r for g, r in campaign.items()
+                              if g.startswith("fused_v3")}}),
         _entry("restore_windows", RESTORE_SOURCE, RESTORE_REPLACES,
-               batched_launches["restore_windows"] + gradient_launches["restore_windows"],
+               batched_launches["restore_windows"] + gradient_launches["restore_windows"]
+               + campaign_launches["restore_windows"],
                batched["restore_windows"],
                max_abs_err=max(r["max_abs_err"] for r in (batched["restore_windows"],
                                                           gradient["restore_horizontal"],
-                                                          gradient["restore_vertical"])),
+                                                          gradient["restore_vertical"],
+                                                          *(r for g, r in campaign.items()
+                                                            if g.startswith("restore")))),
                geometries={"sweep_1080p_b64": batched["restore_windows"],
                            "row17_uhd_horizontal_b256": gradient["restore_horizontal"],
-                           "row17_uhd_vertical_b256": gradient["restore_vertical"]}),
+                           "row17_uhd_vertical_b256": gradient["restore_vertical"],
+                           **{f"row17_campaign_{g}_b64": r for g, r in campaign.items()
+                              if g.startswith("restore")}}),
         # the default clamped form (row 6); every row's numbers follow
         _entry("window_blend", BLEND_SOURCE, BLEND_REPLACES,
                hybrid_launches + sum(ops_rows[k]["launches"] for k in packed if k in ops_rows),

@@ -180,8 +180,9 @@ def span_summary() -> Dict:
     """``{"spans": {name: stats}, "records": [...]}`` of the kept spans.
 
     Per name: ``count`` (every span closed since the last reset, kept
-    records or not), ``host_ms_p50``/``host_ms_p95``, ``device_ms_p50``/
-    ``device_ms_p95`` (None without device intervals) and
+    records or not), ``host_ms_p50``/``host_ms_p95``,
+    ``device_ms_p50``/``device_ms_p95``/``device_ms_sum`` (None without
+    device intervals; the sum over the kept records) and
     ``self_host_ms_p50`` (the duration less the part its child spans
     cover). Waits for the device intervals not yet read."""
     with _lock:
@@ -210,6 +211,7 @@ def span_summary() -> Dict:
             "host_ms_p95": _quantile(host, 0.95),
             "device_ms_p50": statistics.median(dev) if dev else None,
             "device_ms_p95": _quantile(dev, 0.95) if dev else None,
+            "device_ms_sum": math.fsum(dev) if dev else None,
             "self_host_ms_p50": statistics.median(own),
         }
     return {"spans": spans, "records": records}

@@ -28,13 +28,19 @@
 //   horizontal gradient) stores ramp[c] at column c, read through the L1
 //   (one packed row of the plane's width, 9 KB at 2304 columns), so its
 //   stores stay the same 16-byte stores.
+// - a ramp is one line shared by every canvas, or a line per canvas (a
+//   batch of creatives, each on its own gradient): the body is one inlined
+//   template, whose restore_kernel instances (solid, shared line) are the
+//   kernels they were before, and whose restore_lines_kernel instances read
+//   canvas b's line at ramp + b * line_stride.
 //
 // Interface (all contiguous, on one device; see ops/compose_kernels.py):
 //   plane   i32 [B, hp, wp]   packed RGBA, updated in place (4-byte aligned)
 //   origins i32 [B, N, 2]     (x, y) of each window's top-left corner
 //   extents i32 [N, 2]        (h, w) of object k's window
 //   ramp    i32 [wp] or [hp]  packed RGBA of each column (ROW_RAMP) or row
-//                             (COL_RAMP) of the gradient plane
+//                             (COL_RAMP) of the gradient plane; or [B, wp] or
+//                             [B, hp], a line per canvas, line_stride apart
 
 #include <climits>
 #include <cstdint>
@@ -51,10 +57,11 @@ enum Fill { SOLID = 0, ROW_RAMP = 1, COL_RAMP = 2 };
 inline int smem_bytes(int n) { return (int)sizeof(int4) * n; }
 
 template <int FILL>
-__global__ void __launch_bounds__(THREADS)
-restore_kernel(int* __restrict__ plane, const int* __restrict__ origins,
-               const int* __restrict__ extents, const int* __restrict__ ramp, int N, int hp,
-               int wp, int bg) {
+__device__ __forceinline__ void restore_body(int* __restrict__ plane,
+                                             const int* __restrict__ origins,
+                                             const int* __restrict__ extents,
+                                             const int* __restrict__ ramp, int N, int hp, int wp,
+                                             int bg) {
   extern __shared__ int4 s_win[];  // (x0, y0, x1, y1) on the plane; (0, 0, 0, 0) when empty
   __shared__ int s_span[2];
   const int b = blockIdx.x;
@@ -130,20 +137,53 @@ restore_kernel(int* __restrict__ plane, const int* __restrict__ origins,
 }
 
 template <int FILL>
+__global__ void __launch_bounds__(THREADS)
+restore_kernel(int* __restrict__ plane, const int* __restrict__ origins,
+               const int* __restrict__ extents, const int* __restrict__ ramp, int N, int hp,
+               int wp, int bg) {
+  restore_body<FILL>(plane, origins, extents, ramp, N, hp, wp, bg);
+}
+
+// the ramp forms with a line per canvas: canvas b's at ramp + b * line_stride
+template <int FILL>
+__global__ void __launch_bounds__(THREADS)
+restore_lines_kernel(int* __restrict__ plane, const int* __restrict__ origins,
+                     const int* __restrict__ extents, const int* __restrict__ ramp, int N,
+                     int hp, int wp, int line_stride) {
+  restore_body<FILL>(plane, origins, extents, ramp + (size_t)blockIdx.x * line_stride, N, hp, wp,
+                     0);
+}
+
+// LINES: restore_lines_kernel, canvas b's line at ramp + b * line_stride;
+// else restore_kernel (a solid fill or one line), its instances only
+template <int FILL, bool LINES = false>
 int launch(void* plane, const void* origins, const void* extents, const void* ramp, int B, int N,
-           int hp, int wp, int max_wh, int bg, void* stream) {
+           int hp, int wp, int max_wh, int bg, void* stream, int line_stride = 0) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int smem = smem_bytes(N);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const void* kernel;
+  if constexpr (LINES) {
+    kernel = (const void*)restore_lines_kernel<FILL>;
+  } else {
+    kernel = (const void*)restore_kernel<FILL>;
+  }
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        restore_kernel<FILL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int bands = max_wh > BAND_ROWS ? (max_wh + BAND_ROWS - 1) / BAND_ROWS : 1;
-  restore_kernel<FILL><<<dim3((unsigned)B, (unsigned)bands), THREADS, smem, s>>>(
-      static_cast<int*>(plane), static_cast<const int*>(origins),
-      static_cast<const int*>(extents), static_cast<const int*>(ramp), N, hp, wp, bg);
+  const dim3 grid((unsigned)B, (unsigned)bands);
+  if constexpr (LINES) {
+    restore_lines_kernel<FILL><<<grid, THREADS, smem, s>>>(
+        static_cast<int*>(plane), static_cast<const int*>(origins),
+        static_cast<const int*>(extents), static_cast<const int*>(ramp), N, hp, wp, line_stride);
+  } else {
+    restore_kernel<FILL><<<grid, THREADS, smem, s>>>(
+        static_cast<int*>(plane), static_cast<const int*>(origins),
+        static_cast<const int*>(extents), static_cast<const int*>(ramp), N, hp, wp, bg);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -160,11 +200,19 @@ extern "C" int restore_windows_launch(void* plane, const void* origins,
   return launch<SOLID>(plane, origins, extents, nullptr, B, N, hp, wp, max_wh, bg, stream);
 }
 
-// the gradient form: ramp holds wp packed columns (horizontal) or hp rows
+// the gradient form: ramp holds wp packed columns (horizontal) or hp rows,
+// one line for every canvas (line_stride 0) or a line per canvas, canvas b's
+// at ramp + b * line_stride
 extern "C" int restore_windows_ramp_launch(void* plane, const void* origins,
                                            const void* extents, const void* ramp, int B,
                                            int N, int hp, int wp, int max_wh, int horizontal,
-                                           void* stream) {
+                                           int line_stride, void* stream) {
+  if (line_stride) {
+    return horizontal ? launch<ROW_RAMP, true>(plane, origins, extents, ramp, B, N, hp, wp,
+                                               max_wh, 0, stream, line_stride)
+                      : launch<COL_RAMP, true>(plane, origins, extents, ramp, B, N, hp, wp,
+                                               max_wh, 0, stream, line_stride);
+  }
   return horizontal ? launch<ROW_RAMP>(plane, origins, extents, ramp, B, N, hp, wp, max_wh, 0,
                                        stream)
                     : launch<COL_RAMP>(plane, origins, extents, ramp, B, N, hp, wp, max_wh, 0,

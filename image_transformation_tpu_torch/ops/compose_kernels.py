@@ -100,12 +100,15 @@ FLAG_IDENTITY = 2
 #: launches since the last reset (one per launching wrapper call on CUDA;
 #: "fused_v3_chunks" counts each chunk a K2 call launches over,
 #: "fused_v3_tables" each chunk that ran K2's table stage: a mixed launch's,
-#: and "fused_v3_walks" each launch of K2's resample, which walks the live
+#: "fused_v3_walks" each launch of K2's resample, which walks the live
 #: tiles of at most as many placements as its prefix fits: one a chunk, or
-#: more where a chunk's placements pass that cap)
+#: more where a chunk's placements pass that cap; "fused_v3_own_objects"
+#: each chunk whose objects are per canvas, Bo == B > 1; and
+#: "restore_windows_lines" each K3 ramp launch with a line per canvas)
 LAUNCHES = {"fused_compose": 0, "fused_v3": 0, "fused_v3_chunks": 0, "fused_v3_tables": 0,
-            "fused_v3_walks": 0, "restore_windows": 0, "window_blend": 0,
-            "window_blend_planar": 0, "window_blend_stage": 0, "packed_luma": 0}
+            "fused_v3_walks": 0, "fused_v3_own_objects": 0, "restore_windows": 0,
+            "restore_windows_lines": 0, "window_blend": 0, "window_blend_planar": 0,
+            "window_blend_stage": 0, "packed_luma": 0}
 
 _MAX_GRID_X = (1 << 31) - 1  # CUDA's limit on gridDim.x, which carries B*N
 _MAX_GRID_Z = 65535  # CUDA's limit on gridDim.y and gridDim.z
@@ -236,7 +239,7 @@ _ARGTYPES = {
     "fused_v3_tables_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "fused_v3_grid": [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "restore_windows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "restore_windows_ramp_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "restore_windows_ramp_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "restore_windows_smem": [ctypes.c_int],
     "window_blend_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "window_blend_planar_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
@@ -510,10 +513,11 @@ def pack_rgba_scalar(bg_rgba: Tuple[int, int, int, int]) -> int:
 
 
 class GradientRamp(NamedTuple):
-    """The gradient background of a padded plane as one packed line:
+    """The gradient background of a padded plane as packed lines:
     ``values`` int32 [wp] (``horizontal``: column x of every row takes
-    ``values[x]``) or [hp] (row y takes ``values[y]``). A fresh render also
-    takes one line per canvas, [B, wp] or [B, hp]; K3 takes one line."""
+    ``values[x]``) or [hp] (row y takes ``values[y]``), one line shared by
+    every canvas; or [B, wp] or [B, hp], canvas b's own line ``values[b]``.
+    The lines of a batch run along one axis."""
 
     values: torch.Tensor
     horizontal: bool
@@ -538,21 +542,38 @@ def _packed_ramp(c1, c2, n: int, limit: int, device) -> torch.Tensor:
     return rgb[..., 0] | (rgb[..., 1] << 8) | (rgb[..., 2] << 16) | pack_rgba_scalar((0, 0, 0, 255))
 
 
-def gradient_ramp(c1, c2, horizontal: bool, canvas_hw: Tuple[int, int],
+def gradient_axis(horizontal) -> bool:
+    """The one axis of a batch's gradients: ``horizontal`` is a bool, or a
+    sequence of them, one per canvas; gradients on both axes raise
+    ValueError (K3's ramp form restores one axis a launch)."""
+    if isinstance(horizontal, (bool, np.bool_, int)):
+        return bool(horizontal)
+    axes = {bool(h) for h in np.asarray(horizontal).reshape(-1).tolist()}
+    if len(axes) != 1:
+        raise ValueError("the batch's gradients run on both axes (horizontal and vertical); "
+                         "a batched gradient render takes one axis a batch")
+    return axes.pop()
+
+
+def gradient_ramp(c1, c2, horizontal, canvas_hw: Tuple[int, int],
                   pad_hw: Tuple[int, int], device) -> GradientRamp:
     """The :class:`GradientRamp` of the c1 -> c2 gradient (u8 RGB triples,
-    as ``ops.background.gradient_spec`` gives them, or [B, 3] per canvas) on
-    a canvas padded to ``pad_hw``: one packed line along the gradient's
-    axis, the canvas's pixels equal to the reference's fill_gradient and the
-    pad at c2."""
+    as ``ops.background.gradient_spec`` gives them: one line; or [B, 3] per
+    canvas: a line each, with ``horizontal`` a bool or one per canvas, of
+    one axis, see :func:`gradient_axis`) on a canvas padded to ``pad_hw``:
+    packed lines along the gradient's axis, the canvas's pixels equal to the
+    reference's fill_gradient and the pad at c2."""
+    horizontal = gradient_axis(horizontal)
     (H, W), (hp, wp) = canvas_hw, pad_hw
     n, limit = (wp, W) if horizontal else (hp, H)
-    return GradientRamp(_packed_ramp(c1, c2, n, limit, device).contiguous(), bool(horizontal))
+    return GradientRamp(_packed_ramp(c1, c2, n, limit, device).contiguous(), horizontal)
 
 
 def _background_plane(bg: Background, B: int, hp: int, wp: int, device) -> torch.Tensor:
     """A fresh padded plane [B, hp, wp] of the background ``bg``."""
     if isinstance(bg, GradientRamp):
+        if bg.values.dim() == 2 and bg.values.shape[0] != B:
+            raise ValueError(f"the ramp has {bg.values.shape[0]} lines for {B} canvases")
         line = bg.values.to(device)
         line = line[..., None, :] if bg.horizontal else line[..., None]
         return line.expand(B, hp, wp).contiguous()
@@ -706,20 +727,28 @@ def _fused_v3_meta(obj_hw, boxes, canvas_hw, pad_hw, window_hw, static_win=None)
     out_w). Target sizes clamp to the window envelope (``cap_w - 128``,
     ``cap_h - 8``; per object with ``static_win``), so an oversized box
     renders a cropped scale, and origins cap at ``hp - cap_h`` /
-    ``wp - cap_w`` so each window ends inside the plane."""
+    ``wp - cap_w`` so each window ends inside the plane. An empty slot
+    (object size 0, as a creative with fewer objects than the batch's slots
+    pads to) is not valid and its window's origin is (wp, hp), past the
+    plane: K2 walks no tile of it and K3 restores nothing there."""
     boxes = _long(boxes)
     obj_hw = _long(obj_hw, boxes.device)
     obj_hw = obj_hw.expand(*boxes.shape[:-1], 2)
     hp, wp = pad_hw
+    # per window, the largest box (h, w) and window origin (y, x) it takes;
+    # last, an empty slot's window meta, past the plane
+    wins = [tuple(window_hw)] if static_win is None else static_win
+    rows = [(h - 8, w - 128, hp - h, wp - w, 0, 0) for h, w in wins] + [(wp, hp, 0, 0, 0, 0)]
+    table = _device_table(tuple(rows), torch.int32, boxes.device)
     if static_win is None:
-        cap_h, cap_w = window_hw
+        size_h, size_w, origin_y, origin_x = rows[0][:4]
     else:
-        caps = _device_table(tuple(static_win), torch.int64, boxes.device)
-        cap_h, cap_w = caps[None, :, 0], caps[None, :, 1]
-    w = _cap((boxes[..., 2] - boxes[..., 0]).clamp(min=1), cap_w - 128)
-    h = _cap((boxes[..., 3] - boxes[..., 1]).clamp(min=1), cap_h - 8)
+        size_h, size_w, origin_y, origin_x = table[None, :-1, :4].unbind(-1)
+    w = _cap((boxes[..., 2] - boxes[..., 0]).clamp(min=1), size_w)
+    h = _cap((boxes[..., 3] - boxes[..., 1]).clamp(min=1), size_h)
     same = (w == obj_hw[..., 1]) & (h == obj_hw[..., 0])
-    meta6 = _window_meta6(boxes, canvas_hw, (hp - cap_h, wp - cap_w), same)
+    meta6 = _window_meta6(boxes, canvas_hw, (origin_y, origin_x), same)
+    meta6 = torch.where(obj_hw.amin(-1, keepdim=True) <= 0, table[-1], meta6)
     sizes = torch.stack([obj_hw[..., 0], obj_hw[..., 1], h, w], dim=-1)
     return torch.cat([meta6, sizes.to(torch.int32)], dim=-1).contiguous()
 
@@ -1021,6 +1050,7 @@ def fused_v3(plane: torch.Tensor, objs_p: torch.Tensor, meta: torch.Tensor,
             if rc != 0:
                 raise RuntimeError(f"fused_v3: kernel launch failed with CUDA error {rc}")
             LAUNCHES["fused_v3_chunks"] += 1
+            LAUNCHES["fused_v3_own_objects"] += Bo > 1
             LAUNCHES["fused_v3_tables"] += mixed
             LAUNCHES["fused_v3_walks"] += walks.value
     LAUNCHES["fused_v3"] += 1
@@ -1064,12 +1094,15 @@ def _restore_table(extents, device: torch.device) -> Tuple[torch.Tensor, int]:
 
 
 def _check_ramp(plane: torch.Tensor, ramp: GradientRamp) -> None:
+    """Raise unless the ramp is one line of the plane's axis, or a line per
+    canvas."""
     v = ramp.values
-    n = plane.shape[2] if ramp.horizontal else plane.shape[1]
+    B, n = plane.shape[0], plane.shape[2] if ramp.horizontal else plane.shape[1]
     if not torch.is_tensor(v) or v.dtype != torch.int32 or v.device != plane.device:
         raise TypeError(f"the ramp must be an int32 tensor on {plane.device}")
-    if tuple(v.shape) != (n,) or not v.is_contiguous():
-        raise ValueError(f"the ramp must be contiguous [{n}], got {tuple(v.shape)}")
+    if tuple(v.shape) not in ((n,), (B, n)) or not v.is_contiguous():
+        raise ValueError(f"the ramp must be contiguous [{n}] or [{B}, {n}] (a line per "
+                         f"canvas), got {tuple(v.shape)}")
 
 
 def restore_windows_reference(plane: torch.Tensor, origins: torch.Tensor,
@@ -1078,13 +1111,14 @@ def restore_windows_reference(plane: torch.Tensor, origins: torch.Tensor,
     """Plain PyTorch version of K3: fill each window (origin (x, y) of
     placement (b, k), extent (h, w) of object k) with the background ``bg``
     (a packed colour, or the ramp's values at the window's columns or
-    rows), cut at the plane's edge. Updates ``plane`` in place and returns
-    it."""
+    rows: the shared line's, or canvas b's own), cut at the plane's edge.
+    Updates ``plane`` in place and returns it."""
     _check_restore_args(plane, origins, len(extents))
     extents = _restore_pairs(extents)
     ramp = isinstance(bg, GradientRamp)
     if ramp:
         _check_ramp(plane, bg)
+        lines = bg.values.expand(plane.shape[0], -1)  # canvas b's line, shared or its own
     for b, row in enumerate(origins.tolist()):
         for k, (x, y) in enumerate(row):
             h, w = extents[k]
@@ -1093,9 +1127,9 @@ def restore_windows_reference(plane: torch.Tensor, origins: torch.Tensor,
             if not ramp:
                 plane[b, ys, xs] = bg
             elif bg.horizontal:
-                plane[b, ys, xs] = bg.values[xs][None, :]
+                plane[b, ys, xs] = lines[b, xs][None, :]
             else:
-                plane[b, ys, xs] = bg.values[ys][:, None]
+                plane[b, ys, xs] = lines[b, ys][:, None]
     return plane
 
 
@@ -1107,10 +1141,12 @@ def restore_windows(plane: torch.Tensor, origins: torch.Tensor,
 
     plane i32 [B, hp, wp]; origins i32 [B, N, 2] (x, y); extents: N host
     (h, w) pairs, the window extent of object k (a tuple of pairs, as the
-    render programs pass, is uploaded once and then found in a cache). On a
-    CUDA device this launches K3 (``csrc/restore_windows.cu``; its solid or
-    its ramp form) and raises if the launch fails; on the CPU it runs
-    :func:`restore_windows_reference`.
+    render programs pass, is uploaded once and then found in a cache). A
+    ramp's values are one line or a line per canvas ([B, n]). On a CUDA
+    device this launches K3 (``csrc/restore_windows.cu``; its solid or its
+    ramp form, a ramp with a line per canvas counted in
+    ``LAUNCHES["restore_windows_lines"]`` too) and raises if the launch
+    fails; on the CPU it runs :func:`restore_windows_reference`.
     """
     if plane.device.type == "cpu":
         return restore_windows_reference(plane, origins, extents, bg)
@@ -1126,12 +1162,15 @@ def restore_windows(plane: torch.Tensor, origins: torch.Tensor,
         ext_d, max_wh = _restore_table(extents, dev)
     except TypeError:  # an unhashable sequence (a list): its tuple
         ext_d, max_wh = _restore_table(_restore_pairs(extents), dev)
+    lines = False
     with _device_guard(dev):
         if isinstance(bg, GradientRamp):
             _check_ramp(plane, bg)
+            lines = bg.values.dim() == 2
             rc = _kernel_entry("restore_windows_ramp_launch")(
                 plane.data_ptr(), origins.data_ptr(), ext_d.data_ptr(), bg.values.data_ptr(),
-                B, N, hp, wp, max_wh, int(bg.horizontal), _stream_handle(dev))
+                B, N, hp, wp, max_wh, int(bg.horizontal), bg.values.shape[-1] if lines else 0,
+                _stream_handle(dev))
         else:
             rc = _kernel_entry("restore_windows_launch")(
                 plane.data_ptr(), origins.data_ptr(), ext_d.data_ptr(),
@@ -1140,6 +1179,7 @@ def restore_windows(plane: torch.Tensor, origins: torch.Tensor,
         raise RuntimeError(f"restore_windows: kernel launch failed with CUDA error {rc} "
                            "(past ~14,500 windows a canvas's do not fit shared memory)")
     LAUNCHES["restore_windows"] += 1
+    LAUNCHES["restore_windows_lines"] += lines
     return plane
 
 

@@ -34,6 +34,7 @@ from ..core.timing import span
 from ..ops.compose import composite_batch, composite_canvas_tables_indexed_many
 from ..ops.compose_kernels import (
     composite_batch_fused_v3,
+    gradient_axis,
     gradient_ramp,
     pack_rgba_scalar,
     packed_luma,
@@ -121,8 +122,9 @@ def _render_step(canvas_hw, out_max_hw, background, out_bounds_hw, reuse: bool, 
     that differs between them. The render geometry is decided on the first
     call (the envelope from its objects' shape where ``out_max_hw`` is None,
     their count from it where there are no bounds) and kept: later calls
-    take objects of the same shape. Each reuse call restores the windows
-    the previous call's meta drew."""
+    take objects of the same shape, shared ([1, N, ...]) or one creative
+    per canvas ([B, N, ...]). Each reuse call restores the windows the
+    previous call's meta drew."""
     H, W = canvas_hw
     fixed: List = [None]  # (geometry, background), decided on the first call
     state: List = [None]  # (plane, meta) of the previous call
@@ -171,8 +173,12 @@ def make_solid_render_step(
     ``plane`` is the padded packed int32 plane [B, hp, wp], whose bytes
     crop to RGBA (``packed_to_u8(plane)[:, :H, :W]``). ``objs`` may be u8
     [Bo, N, ph, pw, 4] or planar, with Bo == 1 shared by the B canvases of
-    ``boxes``. The render runs with the JAX step's settings (pipelined,
-    per-object windows when ``static_obj_hw`` is given).
+    ``boxes``, or Bo == B, one creative per canvas (K2 reads canvas b's
+    objects from ``objs[b]``); ``obj_hw`` [B, N, 2] gives each canvas's
+    sizes, and a slot of size (0, 0), where a creative has fewer objects
+    than N, draws and restores nothing. The render runs with the JAX step's
+    settings (pipelined, per-object windows when ``static_obj_hw`` is
+    given).
 
     ``static_obj_hw``: per-object bounds (h, w) of the output sizes, which
     size each object's K2 window and restore window (the asset sizes bound
@@ -206,12 +212,16 @@ def make_gradient_render_step(
 ):
     """Gradient-background render step: the step of
     :func:`make_solid_render_step` (signature, reuse in place, ``stat``,
-    ``step.release()``) on the c1 -> c2 gradient ``gradient = (c1, c2,
+    ``step.release()``, objects shared or one creative per canvas: ``objs``
+    [1 or B, N, ...]) on the c1 -> c2 gradient ``gradient = (c1, c2,
     horizontal)``, as ``ops.background.gradient_spec`` gives it (the
-    upstream fill_gradient). The gradient's packed line (:func:`
-    ops.compose_kernels.gradient_ramp`) is built once, with the step's
-    geometry on its first call; each reuse call restores the previous
-    call's windows from it (K3's ramp form).
+    upstream fill_gradient); or on a gradient per canvas, ``c1`` and ``c2``
+    u8 [B, 3] and ``horizontal`` a bool or one per canvas. The gradients of
+    a batch run on one axis: both axes raise ValueError. The gradient's
+    packed lines (:func:`ops.compose_kernels.gradient_ramp`, one line or a
+    line per canvas) are built once, with the step's geometry on its first
+    call; each reuse call restores the previous call's windows from them
+    (K3's ramp form), and a count of lines other than the batch's raises.
 
     ``out_bounds_hw``: per-object bounds (h, w) of the output sizes, one per
     object. Their maximum is K2's output envelope (its scratch and the
@@ -231,6 +241,7 @@ def make_gradient_render_step(
         raise ValueError(f"out_bounds_hw must be positive (h, w) pairs, got {out_bounds_hw}")
     envelope = (max(h for h, _ in bounds), max(w for _, w in bounds))
     c1, c2, horizontal = gradient
+    horizontal = gradient_axis(horizontal)
     return _render_step(canvas_hw, envelope,
                         lambda geo: gradient_ramp(c1, c2, horizontal, canvas_hw, geo.pad, dev),
                         bounds, reuse, stat, dev)

@@ -409,9 +409,10 @@ def test_wrappers_reject_bad_arguments_and_count_no_cpu_launch():
     ck.fused_v3(plane, op, meta, env)
     ck.restore_windows(plane, meta[..., :2].contiguous(), ((8, 128),) * meta.shape[1], 0)
     assert ck.LAUNCHES == {"fused_compose": 0, "fused_v3": 0, "fused_v3_chunks": 0,
-                           "fused_v3_tables": 0, "fused_v3_walks": 0, "restore_windows": 0,
-                           "window_blend": 0, "window_blend_planar": 0,
-                           "window_blend_stage": 0, "packed_luma": 0}
+                           "fused_v3_tables": 0, "fused_v3_walks": 0,
+                           "fused_v3_own_objects": 0, "restore_windows": 0,
+                           "restore_windows_lines": 0, "window_blend": 0,
+                           "window_blend_planar": 0, "window_blend_stage": 0, "packed_luma": 0}
     with pytest.raises(TypeError):
         ck.fused_v3(plane.to(torch.int64), op, meta, env)
     with pytest.raises(ValueError):
