@@ -47,7 +47,9 @@ exits non-zero:
    0), on the bundle's gradient axis and then on the other:
    make_gradient_render_step's fresh render, then 3 reuse steps with the
    launch counts reset just before and read just after (K3 3, K2 3 calls
-   in 3 x ceil(B / chunk) chunk launches, luma 3); the last reuse step ==
+   in 3 x ceil(B / chunk) chunk launches, luma 3) and K2's H-pass tally
+   (compose_kernels.fused_v3_h_tally) read around them: fails where under
+   95% of the resampled tiles took the column form; the last reuse step ==
    a fresh render; on that step's own inputs, K3's ramp form (ROW_RAMP or
    COL_RAMP) == restore_windows_reference and K2's MIXED instance (its
    growing axes' exact-argument tables, over its chunks) ==
@@ -60,7 +62,9 @@ exits non-zero:
    four ratios' steps with the driver's bounds and boxes from seed 0): each
    ratio's fresh render, then 3 rounds of reuse steps, the ratios in turn,
    with the launch counts reset just before and read just after (K3's line
-   form on every reuse step, every K2 chunk on per-canvas objects); on each
+   form on every reuse step, every K2 chunk on per-canvas objects), with
+   K2's H-pass tally around them beside ptxas's figures of both
+   v3_resample instances; on each
    ratio's last reuse step the plane == a fresh render, the empty slots'
    windows lie past the plane and walk no tile, and K3's line form ==
    restore_windows_reference and K2 == fused_v3_reference (slices of 32
@@ -768,6 +772,10 @@ UHD_MIX = "bench_torch/mixes/score916.json"
 #: for a whole batch of 256 would take tens of GB)
 UHD_PLAIN_SLICE = 32
 UHD_REUSE_STEPS = 3
+#: the least share of K2's mixed-instance tiles whose H pass takes the column
+#: form (``compose_kernels.fused_v3_h_tally``) at the UHD cell's shapes, where
+#: every placement upscales 2.92-5.85x
+H_COLUMNS_MIN = 0.95
 #: the campaign cell's configuration and mix (campaign_uhd.sweep4x64)
 CAMPAIGN_CONFIG = "bench_torch/configs/campaign_uhd.json"
 CAMPAIGN_MIX = "bench_torch/mixes/sweep4x64.json"
@@ -842,6 +850,16 @@ def _k2_bound_sliced(plane, objs_p, meta, env, per, resample_only=False):
     return out
 
 
+def _h_tally_text(before, after):
+    """(share, text) of K2's mixed-instance tiles between two readings of
+    ``compose_kernels.fused_v3_h_tally``: those whose H pass took the
+    column form over all it resampled."""
+    cols, total = after[0] - before[0], after[1] - before[1]
+    share = cols / total if total else 0.0
+    return share, (f"K2's H pass in the column form on {cols:,} of {total:,} resampled tiles "
+                   f"({100 * share:.2f}%)")
+
+
 def phase_gradient(smi: str):
     """Kernel-table rows 17 (K3's ramp forms) and 18 (K2's table stage) and
     K2's MIXED instance at the UHD cell's shapes: make_gradient_render_step
@@ -884,11 +902,16 @@ def phase_gradient(smi: str):
         step(None, objs_p, hw, pool[0])  # the fresh render
         torch.cuda.synchronize()
         ck.reset_launch_counts()
+        tally = ck.fused_v3_h_tally(device)
         with _CaptureReuse() as cap:
             for i in range(1, UHD_REUSE_STEPS + 1):
                 cap.armed = i == UHD_REUSE_STEPS
                 plane, _ = step(None, objs_p, hw, pool[i])
         torch.cuda.synchronize()
+        h_share, h_text = _h_tally_text(tally, ck.fused_v3_h_tally(device))
+        print(f"{tag} {UHD_REUSE_STEPS} reuse steps: {h_text}")
+        if h_share < H_COLUMNS_MIN:
+            raise AssertionError(f"{tag} {h_text}, under {100 * H_COLUMNS_MIN:.0f}%")
         launches = dict(ck.LAUNCHES)
         pre_k3, origins, extents, ramp = cap.k3
         pre_k2, _, meta, env = cap.k2
@@ -961,7 +984,7 @@ def phase_gradient(smi: str):
                        for label, key in (("tables", "v3_tables"), ("resample", "v3_resample"),
                                           ("blend", "box_blend"))}
             r2 = results["fused_v3"] = dict(
-                max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms,
+                max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms, h_columns_share=h_share,
                 **_k2_bound_sliced(pre_k2, objs_p, meta, env, UHD_PLAIN_SLICE))
             rr = results["fused_v3_resample"] = dict(
                 max_abs_err=err, ms=part_ms["resample"], plain_ms=plain_ms,
@@ -1060,6 +1083,7 @@ def phase_campaign(smi: str):
         step(None, objs_p, hw, pool[0])
     torch.cuda.synchronize()
     ck.reset_launch_counts()
+    tally = ck.fused_v3_h_tally(device)
     got = []
     with _CaptureReuse() as cap:
         for i in range(1, reuse + 1):
@@ -1069,6 +1093,7 @@ def phase_campaign(smi: str):
                 if cap.armed:
                     got.append((plane, cap.k3, cap.k2))
     torch.cuda.synchronize()
+    h_share, h_text = _h_tally_text(tally, ck.fused_v3_h_tally(device))
     launches = dict(ck.LAUNCHES)
     pad = tuple(objs_p.shape[3:])
     mixed = [env[0] > pad[0] or env[1] > pad[1] for _, _, (_, _, _, env) in got]
@@ -1091,6 +1116,10 @@ def phase_campaign(smi: str):
           f"{launches['fused_v3_chunks']} chunks (fused_v3_own_objects "
           f"{launches['fused_v3_own_objects']}, fused_v3_tables {launches['fused_v3_tables']}, "
           f"fused_v3_walks {launches['fused_v3_walks']}), luma {launches['packed_luma']}")
+    k2_smem = ck._v3_grid(B, N, pad, got[0][2][3], device).resample_smem
+    print(f"[campaign] {reuse} rounds of reuse steps: {h_text}; ptxas: "
+          f"{launch_text(K2_PTXAS[:1], (k2_smem,))} (v3_resample<false>); "
+          f"{launch_text(K2_MIXED_LAUNCHES[1:2], (k2_smem,))} (v3_resample<true>)")
     smem = ck.launch_smem("restore_windows", 0, 0, N)
     forms = [((f"{kind} {fill}", key),) for kind, table in (("lines", K3_LINES_LAUNCHES),
                                                              ("shared line", K3_RAMP_LAUNCHES))
@@ -1170,7 +1199,7 @@ def phase_campaign(smi: str):
         ms = min(cuda_ms(lambda: ck.fused_v3(work, objs_p, meta, env), 5) for _ in range(2))
         del work
         r2 = results[f"fused_v3_{ratio}"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, h_columns_share=h_share,
             **_k2_bound_sliced(pre_k2, objs_p, meta, env, UHD_PLAIN_SLICE))
         print(f"{tag} K2 (per-canvas objects, envelope {tuple(env)}) B={B} in {chunks[r]} "
               f"chunks: K2 == plain (max abs err {err}); K2 {ms:.4f} ms, plain {plain_ms:.1f} "

@@ -41,6 +41,10 @@
 //   source patch is staged premultiplied in shared memory, four pixels of
 //   the four planes (16 bytes) per thread, and the H result stays in shared
 //   memory, so there is no scratch in device memory between the passes;
+//   the mixed instance's H pass puts lanes on the tile's 32 columns where a
+//   chunk has fewer than 32 source rows (an upscale reads 11-17 a tile at
+//   the UHD cell's 2.9-5.9x, which left 50-65% of the lanes idle over
+//   source rows); the other instance and K1 keep lanes on source rows;
 // - the f32 table arithmetic uses __fmul_rn / __fadd_rn / __fdiv_rn, which
 //   nvcc never contracts into FMAs, and each row's weight sum adds the taps
 //   in index order, so the tables equal the plain version's
@@ -230,6 +234,11 @@ struct TapEntry {
 };
 static_assert(sizeof(TapEntry) == 32, "an entry is two 16-byte loads");
 
+// The mixed instance's tiles since the library was loaded, on each device:
+// [0] those whose H pass took the column form, [1] all it resampled (not
+// the plain copies). Each block adds its counts once, as it leaves the walk.
+__device__ unsigned long long g_h_tally[2];
+
 __host__ __device__ __forceinline__ int ceil_tile(int v) {
   return (v + resample::TX - 1) / resample::TX * resample::TX;
 }
@@ -323,12 +332,13 @@ struct V3Taps {
 // is neither dropped nor a plain copy, into `dst` (in shared memory, read
 // after the passes); `win`, `center` and `wsum` in shared memory.
 // `entries` is the placement's table-stage entries (columns, then rows, at
-// ceil_tile(mw)), null where the launch has none.
+// ceil_tile(mw)), null where the launch has none. With MIXED the H pass may
+// take its column form, counted in `tally` (shared memory).
 template <bool MIXED>
 __device__ __forceinline__ void resample_placement_tile(
     const resample::PlanarSrc& src, const resample::TileDst& dst, const Meta& m, int ox0,
     int oy0, int mw, int cap_h, int cap_v, resample::TileWindows& win, float* center,
-    float* wsum, const TapEntry* entries) {
+    float* wsum, const TapEntry* entries, int* tally) {
   extern __shared__ uint32_t smem[];
   int* coef = reinterpret_cast<int*>(smem + resample::TILE_SMEM_BYTES / 4);
   const V3Taps<MIXED> taps{axis_params<MIXED>(m.in_w, m.out_w),
@@ -340,9 +350,10 @@ __device__ __forceinline__ void resample_placement_tile(
       taps.prepare(win, ox0, oy0, m.out_w, m.out_h, coef, coef + cap_h, cap_h, cap_v, th, tv);
   __syncthreads();
   if (staged) {
-    resample::resample_tile(src, resample::SharedTaps{coef, coef + cap_h, &win}, win, smem, dst);
+    resample::resample_tile<MIXED>(src, resample::SharedTaps{coef, coef + cap_h, &win}, win, smem,
+                                   dst, tally);
   } else {
-    resample::resample_tile(src, taps, win, smem, dst);
+    resample::resample_tile<MIXED>(src, taps, win, smem, dst, tally);
   }
 }
 
@@ -403,7 +414,8 @@ struct V3Rects {
 // free). The block's next flat tile, its cursor and the tile's output live
 // in shared memory, not in registers through the tile's passes (the core
 // holds 80 a thread); the next claim is made as a tile starts, so its
-// latency hides behind it.
+// latency hides behind it. With MIXED, thread 0 counts the block's tiles by
+// H-pass form in shared memory and adds them to g_h_tally as it leaves.
 template <bool MIXED>
 __global__ void __launch_bounds__(resample::THREADS, 3)
 v3_resample(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
@@ -416,8 +428,10 @@ v3_resample(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
   __shared__ float center[resample::TX + resample::TY], wsum[resample::TX + resample::TY];
   __shared__ resample::TileDst s_dst;
   __shared__ int s_walk[2];
+  __shared__ int s_tally[2];  // MIXED: the block's tiles in the column form, and in all
   int* prefix = reinterpret_cast<int*>(smem + resample::TILE_SMEM_BYTES / 4 + cap_h + cap_v);
   if (threadIdx.x == 0) s_walk[0] = atomicAdd(claims, 1), s_walk[1] = 0;
+  if (MIXED && threadIdx.x == 0) s_tally[0] = s_tally[1] = 0;
   live_tiles::build_prefix<resample::THREADS>(prefix, p0, n, V3Rects{meta, mh, mw}, s_warp);
   for (;;) {
     const int t = s_walk[0];
@@ -447,9 +461,13 @@ v3_resample(const uint8_t* __restrict__ objects, const int* __restrict__ meta,
                                      : nullptr;
       // s_dst is read after the tile's barriers
       resample_placement_tile<MIXED>(src, s_dst, m, ox0, oy0, mw, cap_h, cap_v, win, center,
-                                     wsum, entries);
+                                     wsum, entries, s_tally);
     }
     __syncthreads();  // s_walk's and s_dst's updates are seen (a plain copy has no barrier)
+  }
+  if (MIXED && threadIdx.x == 0 && s_tally[1] > 0) {
+    atomicAdd(&g_h_tally[0], (unsigned long long)s_tally[0]);
+    atomicAdd(&g_h_tally[1], (unsigned long long)s_tally[1]);
   }
   if (threadIdx.x == 0) live_tiles::finish(claims);
 }
@@ -529,6 +547,19 @@ extern "C" int fused_v3_tables_launch(const void* meta, void* tables, int B, int
   v3_tables<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(meta), static_cast<TapEntry*>(tables), ph, pw, mh, mw);
   return (int)cudaGetLastError();
+}
+
+// The mixed instance's tiles on the current device since the library was
+// loaded (g_h_tally): out[0] those whose H pass took the column form, out[1]
+// all it resampled. A copy from the device: it waits for the launches on
+// the legacy default stream (the caller synchronises the others).
+extern "C" int fused_v3_h_tally(long long* out) {
+  unsigned long long v[2];
+  const cudaError_t err = cudaMemcpyFromSymbol(v, g_h_tally, sizeof(v));
+  if (err != cudaSuccess) return (int)err;
+  out[0] = (long long)v[0];
+  out[1] = (long long)v[1];
+  return 0;
 }
 
 // Launches K2's kernels for B canvases (one chunk of the wrapper's batch):

@@ -16,6 +16,15 @@
 // uniform across the warp and no lane diverges; lanes run over source rows
 // (H) or output columns (V).
 //
+// The H pass's column form (an instance's choice, `COLS`): at an upscale s
+// a tile's 32 output rows read only ~31 / s + 6 source rows (11-17 at
+// 2.9-5.9x), so lanes over source rows leave most of a warp idle. A chunk
+// of fewer than 32 source rows whose columns' windows lie in one patch then
+// puts lane l on tile column l and warp w on the chunk's rows w, w + 8, ...:
+// a chunk of n rows costs each warp ceil(n / 8) passes, not 4. A lane walks
+// its own column's window; its patch reads are mostly broadcasts at an
+// upscale.
+//
 // Shared memory (dynamic, `TILE_SMEM_BYTES`): the premultiplied source patch
 // of RC rows by CC columns (RGBA packed in a u32, row stride CC + 1, odd, so
 // lanes on different rows hit different banks), then the H pass's clipped
@@ -172,6 +181,27 @@ struct SharedTaps {
   }
 };
 
+// The H pass's column form over a chunk of `nrows` (< 32) source rows
+// staged in `patch` from source column j0, whose columns' windows all lie
+// in it: lane l takes tile column l, warp w rows w, w + WARPS, ...; each
+// (row, column) sum is one thread's, in tap order, clipped once, into
+// hres[column][row] (stride TS, odd: the lanes' stores hit 32 banks). The
+// taps are read from `tab` on each row: held in registers for the chunk,
+// they spilled at the kernel's 80 and ran 3% slower.
+template <class Taps>
+__device__ __forceinline__ void h_pass_columns(const Taps& tab, const TileWindows& win,
+                                               const uint32_t* patch, uint32_t* hres, int j0,
+                                               int nrows, int lane, int warp) {
+  const int lo = win.hlo[lane], len = win.hhi[lane] - lo, at = lo - j0;
+#pragma unroll 1
+  for (int r = warp; r < nrows; r += WARPS) {
+    const uint32_t* prow = patch + r * PS + at;
+    int acc[4] = {0, 0, 0, 0};
+    for (int i = 0; i < len; ++i) mac(acc, tab.h(lane, lo + i), prow[i]);
+    hres[lane * TS + r] = clip_pack(acc);
+  }
+}
+
 // Resample one tile of one placement into `out` (row stride `mw`): the
 // output pixels [oy0, oy0 + TY) x [ox0, ox0 + TX) cut at (ext_h, ext_w).
 // All 256 threads of the block call it, after the tile's windows (`win`)
@@ -184,13 +214,18 @@ struct SharedTaps {
 // in shared memory (int4 per row and column, owned by one thread) between
 // chunks. Either way a thread holds the H result of its (row, column) pairs
 // as packed u32 until the whole block is done with the chunk, then writes it.
+// With COLS, a chunk that is not wide and has fewer than 32 source rows
+// takes the column form (h_pass_columns) instead, uniformly per block, and
+// thread 0 adds to `tally` (shared memory) the tile's count in that form
+// (1 where every chunk took it) and in all ([0], [1]).
 //
 // The tile's pixels go to `dst` (TileDst), read only after the passes: a
 // caller whose tile origin is not in blockIdx keeps `dst` in shared memory,
 // so that no output pointer stays live in registers through the passes.
-template <class Src, class Taps>
+template <bool COLS = false, class Src, class Taps>
 __device__ __forceinline__ void resample_tile(const Src& src, const Taps& tab, TileWindows& win,
-                                              uint32_t* smem, const TileDst& dst) {
+                                              uint32_t* smem, const TileDst& dst,
+                                              int* tally = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   uint32_t* patch = smem;                                 // [RC][PS]
   uint32_t* hres = smem + PATCH_BYTES / 4;                // [TX][TS]
@@ -202,41 +237,51 @@ __device__ __forceinline__ void resample_tile(const Src& src, const Taps& tab, T
   const int jlo = win.span[0], jhi = win.span[1], ilo = win.span[2], ihi = win.span[3];
   const bool wide = jhi - jlo > CC;
   const int rc = wide ? RCW : RC;
+  if (COLS && threadIdx.x == 0) {
+    tally[0] += !wide && ihi - ilo < 32;
+    tally[1] += 1;
+  }
 
   int acc_v[ROWS_PER_WARP][4] = {};
   for (int i0 = ilo; i0 < ihi; i0 += rc) {
     const int i1 = min(i0 + rc, ihi), nrows = i1 - i0;
-    uint32_t packed[PAIRS];
-    for (int j0 = jlo; j0 < jhi; j0 += CC) {
-      const int j1 = min(j0 + CC, jhi);
-      src.stage(patch, i0, i1, j0, j1);
+    if (COLS && !wide && nrows < 32) {  // the column form: one patch, uniform per block
+      src.stage(patch, i0, i1, jlo, jhi);
       __syncthreads();
+      h_pass_columns(tab, win, patch, hres, jlo, nrows, lane, warp);
+    } else {
+      uint32_t packed[PAIRS];
+      for (int j0 = jlo; j0 < jhi; j0 += CC) {
+        const int j1 = min(j0 + CC, jhi);
+        src.stage(patch, i0, i1, j0, j1);
+        __syncthreads();
+#pragma unroll
+        for (int m = 0; m < PAIRS; ++m) {
+          const int g = m / (TX / WARPS), c = warp + WARPS * (m % (TX / WARPS));
+          if (32 * g >= nrows) continue;  // uniform per warp
+          int acc[4] = {0, 0, 0, 0};
+          if (j0 != jlo) {  // a later column chunk of a wide tile: the sum so far
+            const int4 h = hsum[c * RCW + lane];
+            acc[0] = h.x, acc[1] = h.y, acc[2] = h.z, acc[3] = h.w;
+          }
+          const int lo = max(win.hlo[c], j0), hi = min(win.hhi[c], j1);
+          const uint32_t* prow = patch + (32 * g + lane) * PS;
+#pragma unroll 4
+          for (int j = lo; j < hi; ++j) mac(acc, tab.h(c, j), prow[j - j0]);
+          if (j1 == jhi) {
+            packed[m] = clip_pack(acc);
+          } else {
+            hsum[c * RCW + lane] = make_int4(acc[0], acc[1], acc[2], acc[3]);
+          }
+        }
+        __syncthreads();
+      }
 #pragma unroll
       for (int m = 0; m < PAIRS; ++m) {
         const int g = m / (TX / WARPS), c = warp + WARPS * (m % (TX / WARPS));
-        if (32 * g >= nrows) continue;  // uniform per warp
-        int acc[4] = {0, 0, 0, 0};
-        if (j0 != jlo) {  // a later column chunk of a wide tile: the sum so far
-          const int4 h = hsum[c * RCW + lane];
-          acc[0] = h.x, acc[1] = h.y, acc[2] = h.z, acc[3] = h.w;
-        }
-        const int lo = max(win.hlo[c], j0), hi = min(win.hhi[c], j1);
-        const uint32_t* prow = patch + (32 * g + lane) * PS;
-#pragma unroll 4
-        for (int j = lo; j < hi; ++j) mac(acc, tab.h(c, j), prow[j - j0]);
-        if (j1 == jhi) {
-          packed[m] = clip_pack(acc);
-        } else {
-          hsum[c * RCW + lane] = make_int4(acc[0], acc[1], acc[2], acc[3]);
-        }
+        const int row = 32 * g + lane;
+        if (row < nrows) hres[c * TS + row] = packed[m];
       }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int m = 0; m < PAIRS; ++m) {
-      const int g = m / (TX / WARPS), c = warp + WARPS * (m % (TX / WARPS));
-      const int row = 32 * g + lane;
-      if (row < nrows) hres[c * TS + row] = packed[m];
     }
     __syncthreads();
     const uint32_t* hcol = hres + lane * TS;

@@ -238,6 +238,7 @@ _ARGTYPES = {
     "fused_v3_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2,
     "fused_v3_tables_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "fused_v3_grid": [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "fused_v3_h_tally": [ctypes.c_void_p],
     "restore_windows_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "restore_windows_ramp_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "restore_windows_smem": [ctypes.c_int],
@@ -969,6 +970,23 @@ def _v3_grid(batch: int, n_objects: int, obj_pad_hw: Tuple[int, int],
     if rc != 0:
         raise RuntimeError(f"fused_v3_grid: CUDA error {rc}")
     return _V3Grid(*(int(v) for v in out))
+
+
+def fused_v3_h_tally(device=None) -> Tuple[int, int]:
+    """K2's mixed-instance resample tiles on a CUDA ``device`` (the current
+    one by default) since the kernels' library was loaded: (tiles whose H
+    pass took the column form, all tiles it resampled). Synchronises the
+    device first; for the smoke run and the card tests, not a timed step."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_v3_h_tally needs a CUDA device, not {dev}")
+    out = (ctypes.c_longlong * 2)()
+    with torch.cuda.device(dev):
+        torch.cuda.synchronize()
+        rc = _kernel_entry("fused_v3_h_tally")(out)
+    if rc != 0:
+        raise RuntimeError(f"fused_v3_h_tally: CUDA error {rc}")
+    return int(out[0]), int(out[1])
 
 
 _V3_CLAIMS = {}  # (device index, stream handle): K2's resample claim counter

@@ -410,3 +410,128 @@ def test_k2_walk_replays_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(work.cpu(), want)
+
+
+def _tile_spans(n_in: int, n_out: int) -> torch.Tensor:
+    """Source positions each 32-wide tile of one axis reads: the span of
+    the union of its output positions' non-empty windows (0 where all are
+    empty), as a mixed K2 launch's tiles take them (exact-argument windows
+    where the axis grows, the f32 form's where it does not)."""
+    from image_transformation_tpu_torch.ops.resize import _grows, row_windows, upscale_tap_windows
+
+    n = -(-n_out // 32) * 32
+    n_in, n_out = torch.tensor(n_in), torch.tensor(n_out)
+    if bool(_grows(n_in, n_out)):
+        lo, hi, _ = upscale_tap_windows(n_in, n_out, n)
+    else:
+        lo, hi = row_windows(n_in, n_out, n).unbind(-1)
+    lo, hi = lo.reshape(-1, 32), hi.reshape(-1, 32)
+    live = hi > lo
+    top = torch.where(live, hi, 0).amax(1)
+    bottom = torch.where(live, lo, torch.iinfo(torch.int64).max).amin(1)
+    return torch.where(live.any(1), top - bottom, 0)
+
+
+def _h_pass_forms(meta, pad, env):
+    """(tiles whose H pass takes the column form, tiles resampled) of a
+    mixed K2 launch: the column form where a tile's rows read fewer than 32
+    source rows and its columns at most 128 source columns (one chunk of
+    rows, one patch: csrc/resample.cuh)."""
+    (ph, pw), (mh, mw) = pad, env
+    cols = total = 0
+    for row in meta.reshape(-1, 10).tolist():
+        in_h, in_w = min(max(row[6], 0), ph), min(max(row[7], 0), pw)
+        out_h, out_w = min(max(row[8], 0), mh), min(max(row[9], 0), mw)
+        if row[5] <= 0 or row[4] > 0 or out_h == 0 or out_w == 0:
+            continue  # dropped, or a plain copy
+        narrow = _tile_spans(in_w, out_w) <= 128
+        short = _tile_spans(in_h, out_h) < 32
+        cols += int((short[:, None] & narrow[None, :]).sum())
+        total += short.numel() * narrow.numel()
+    return cols, total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 24, 31, 32, 33])
+def test_k2_mixed_h_pass_forms_match_plain_version(cuda, rows):
+    """The mixed instance's two H-pass forms: every placement's vertical
+    axis grows so that its first tile reads `rows` source rows (the column
+    form below 32, the row form from 32 on), to 100 output rows (a partial
+    bottom tile), beside a growing, a shrinking (windows past the column
+    form's 6 register taps) and a steeply shrinking horizontal axis (a wide
+    tile: the row form at any row count); per-canvas objects (Bo == B) with
+    an empty slot. K2 == its plain version byte for byte, and the tally
+    counts each tile's form."""
+    rng = np.random.default_rng(rows)
+    B, N, ph, pw, env, hp, wp = 2, 4, 96, 160, (128, 160), 320, 480
+    out_h = 100
+    in_h = next(i for i in range(1, out_h) if int(_tile_spans(i, out_h)[0]) == rows)
+    widths = [(37, 130), (150, 61), (150, 20), (37, 130)]  # (in_w, out_w) of each slot
+    objs = torch.from_numpy(rng.integers(0, 256, (B, N, 4, ph, pw), dtype=np.uint8))
+    meta = np.zeros((B, N, 10), np.int32)
+    for b in range(B):
+        for k, (in_w, out_w) in enumerate(widths):
+            x, y = int(rng.integers(0, wp - 40)), int(rng.integers(0, hp - 40))
+            meta[b, k] = (x, y, 0, 0, 0, 1, in_h, in_w, out_h, out_w)
+    meta[1, 3] = (wp, hp, 0, 0, 0, 0, 0, 0, 0, 0)  # canvas 1's empty slot
+    meta = torch.from_numpy(meta)
+    plane = torch.from_numpy(
+        rng.integers(-2**31, 2**31, (B, hp, wp), dtype=np.int64).astype(np.int32))
+    cols, total = _h_pass_forms(meta, (ph, pw), env)
+    assert total == 4 * (2 * (5 + 2 + 1) + 5)  # 4 tile rows; 5, 2 and 1 tile columns a slot
+    assert 0 < cols < total  # the last tile row reads 1-6 rows; the wide slot keeps rows
+    want = ck.fused_v3_reference(plane.clone(), objs, meta, env)
+    before = ck.fused_v3_h_tally(cuda)
+    got = ck.fused_v3(plane.to(cuda), objs.to(cuda), meta.to(cuda), env)
+    after = ck.fused_v3_h_tally(cuda)
+    assert torch.equal(got.cpu(), want)
+    assert (after[0] - before[0], after[1] - before[1]) == (cols, total)
+
+
+@pytest.mark.cuda
+def test_k2_h_pass_tally_at_the_score916_and_score1080_shapes(cuda):
+    """At the UHD cell's shapes (the bundle's four cutouts at each of its 12
+    levels, 2.92-5.85x, on the 2160 x 3840 plane under its envelope) the
+    mixed instance's H pass takes the column form on at least 95% of the
+    resampled tiles, as the windows predict; score1080's downscales (the
+    other instance) add nothing to the tally."""
+    from image_transformation_tpu_torch.core.bundle import load_bundle
+    from image_transformation_tpu_torch.parallel.sweep import random_downscale_boxes
+
+    arrays = load_bundle("bench_torch/bundles/squarespace").to_arrays()
+    H, W, B = 3840, 2160, 12
+    hw = arrays.obj_hw
+    N = len(hw)
+    scale = 5.848394 * np.linspace(0.5, 1.0, 12)
+    bounds = [(round(h * scale[-1]), round(w * scale[-1])) for h, w in hw.tolist()]
+    rng = np.random.default_rng(916)
+    boxes = np.zeros((B, N, 4), np.int32)
+    for b in range(B):  # canvas b: every cutout at level b
+        for k, (h0, w0) in enumerate(hw.tolist()):
+            h, w = round(h0 * scale[b]), round(w0 * scale[b])
+            x, y = int(rng.integers(0, W - w + 1)), int(rng.integers(0, H - h + 1))
+            boxes[b, k] = (x, y, x + w, y + h)
+    geo = ck.render_geometry((H, W), (max(h for h, _ in bounds), max(w for _, w in bounds)),
+                             N, bounds, pipelined=True)
+    meta = geo.meta(np.broadcast_to(hw, (B, N, 2)).astype(np.int32), boxes, cuda)
+    objs_p = ck.planarize_objects(torch.from_numpy(arrays.objects[None])).to(cuda)
+    plane = torch.zeros((B, *geo.pad), dtype=torch.int32, device=cuda)
+    cols, total = _h_pass_forms(meta.cpu(), tuple(objs_p.shape[3:]), geo.envelope)
+    before = ck.fused_v3_h_tally(cuda)
+    ck.fused_v3(plane, objs_p, meta, geo.envelope)
+    after = ck.fused_v3_h_tally(cuda)
+    assert (after[0] - before[0], after[1] - before[1]) == (cols, total)
+    assert cols >= 0.95 * total > 0
+
+    arrays = load_bundle("data/squarespace").to_arrays()
+    H, W, B = 1920, 1080, 8
+    boxes = np.stack([random_downscale_boxes(rng, arrays.obj_hw, (H, W)) for _ in range(B)])
+    hw = np.broadcast_to(arrays.obj_hw, (B, N, 2)).astype(np.int32)
+    op = ck.planarize_objects(torch.from_numpy(arrays.objects[None])).to(cuda)
+    static = tuple(tuple(int(v) for v in row) for row in arrays.obj_hw)
+    ck.reset_launch_counts()
+    ck.render_solid_fused_v3_program(op, hw, torch.from_numpy(boxes).to(cuda), (H, W),
+                                     ck.pack_rgba_scalar((128, 128, 128, 255)),
+                                     pipelined=True, static_obj_hw=static)
+    assert ck.fused_v3_h_tally(cuda) == after
+    assert ck.LAUNCHES["fused_v3_walks"] == 1 and ck.LAUNCHES["fused_v3_tables"] == 0
